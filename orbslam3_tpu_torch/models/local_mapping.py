@@ -1,0 +1,477 @@
+"""Local mapping: keyframe processing, triangulation, fuse, local BA, culling.
+
+Port of the visual, synchronous path of ``orbslam3_tpu/models/local_mapping.py``
+(reference LocalMapping::Run: ProcessNewKeyFrame → MapPointCulling →
+CreateNewMapPoints → SearchInNeighbors → LocalBundleAdjustment →
+KeyFrameCulling) as a host driver over the port's device steps. The sharded,
+inertial and global-BA branches are not ported (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import native
+from ..ops import ba as ba_ops
+from ..utils.timing import StageTimer
+from . import kernels
+from .device_map import kf_pool_for, mirror_for
+from .map import MapState
+
+
+class LocalMapper:
+    def __init__(self, map_state: MapState, K: np.ndarray, orb_cfg,
+                 wh=(752, 480), ba_window: int = 16, ba_max_fixed: int = 8,
+                 ba_point_cap: int = 4096, device="cpu"):
+        self.map = map_state
+        self.device = torch.device(device)
+        self.K = np.asarray(K, np.float32)
+        self.wh = np.asarray(wh, np.float32)
+        self.orb_cfg = orb_cfg
+        self.cam_type = 0
+        self.ba_window = ba_window
+        self.ba_max_fixed = ba_max_fixed
+        self.ba_point_cap = ba_point_cap
+        self.recent_mp: list[tuple[int, np.ndarray]] = []  # (created_at_kf, ids)
+        self.stats = {"triangulated": 0, "culled_mp": 0, "ba_runs": 0}
+        # Tracker backref: trajectory re-anchoring when a keyframe is culled
+        self.tracker = None
+        self.kf_cull_redundancy = 0.9
+        self.timer = StageTimer()
+        self._K_dev = torch.as_tensor(self.K, device=self.device)
+        map_state.on_remap["mapper"] = self._on_map_remap
+
+    def _on_map_remap(self, kf_remap: np.ndarray, mp_remap: np.ndarray):
+        """Map pools compacted: remap held ids (under the map lock)."""
+        out = []
+        for created_kf, ids in self.recent_mp:
+            ids = mp_remap[ids]
+            ids = ids[ids >= 0]
+            ck = int(kf_remap[created_kf])
+            if ck < 0:
+                ck = int(np.searchsorted(np.nonzero(kf_remap >= 0)[0], created_kf))
+            if len(ids):
+                out.append((ck, ids.astype(np.int32)))
+        self.recent_mp = out
+
+    def _dev(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=self.device)
+
+    # ------------------------------------------------------------------
+    def process_keyframe(self, kf_id: int, initial: bool = False) -> int:
+        """One mapper round. Returns the keyframe's id, remapped if the
+        mapper compacted the pools."""
+        m = self.map
+        with m.lock:
+            kf_id = m.maybe_compact(kf_id)
+            with self.timer.stage("5.kf_insert"):
+                m.refresh_map_points(
+                    np.unique(m.kf_feat_mp[kf_id][m.kf_feat_mp[kf_id] >= 0]))
+                # spanning-tree parent = most-covisible earlier keyframe
+                if m.kf_parent[kf_id] < 0:
+                    covis = m.covisibility_row(kf_id)
+                    covis[kf_id:] = 0
+                    if covis.max() >= 15:
+                        m.kf_parent[kf_id] = int(np.argmax(covis))
+                    else:
+                        earlier = [int(v) for v in m.valid_kf_ids() if v < kf_id]
+                        if earlier:
+                            m.kf_parent[kf_id] = earlier[-1]
+            if initial:
+                # initial map: global BA over the 2 bootstrap keyframes
+                self.local_ba(kf_id, iters=(10, 20))
+                self._renormalize_initial_scale(kf_id)
+                return kf_id
+            with self.timer.stage("6.mp_culling"):
+                self.cull_map_points(kf_id)
+        with self.timer.stage("7.mp_creation"):
+            self.create_new_map_points(kf_id)
+        with self.timer.stage("8.fuse"):
+            self.search_in_neighbors(kf_id)
+        with self.timer.stage("9.local_ba"):
+            self.local_ba(kf_id)
+        with m.lock, self.timer.stage("10.kf_culling"):
+            self.cull_keyframes(kf_id)
+        return kf_id
+
+    def _renormalize_initial_scale(self, kf_id: int):
+        """After init BA, re-fix median depth to 1."""
+        m = self.map
+        mps = m.valid_mp_ids()
+        if len(mps) == 0:
+            return
+        depths = (m.mp_xyz[mps] @ m.kf_R[0].T + m.kf_t[0])[:, 2]
+        med = np.median(depths)
+        if med <= 1e-6:
+            return
+        m.mp_xyz[mps] /= med
+        for k in range(m.n_kf):
+            m.kf_t[k] /= med
+        m.touch()
+
+    # ------------------------------------------------------------------
+    def cull_map_points(self, kf_id: int):
+        """Reference MapPointCulling: cull recent points with found/visible <
+        0.25 or too few observations 2 KFs after creation."""
+        m = self.map
+        survivors = []
+        to_cull = []
+        for created_kf, ids in self.recent_mp:
+            ids = ids[m.mp_valid[ids]]
+            if len(ids) == 0:
+                continue
+            age = kf_id - created_kf
+            bad = m.mp_found[ids] / np.maximum(m.mp_visible[ids], 1) < 0.25
+            if age >= 2:
+                bad |= m.obs_count(ids) <= 2
+            to_cull.append(ids[bad])
+            keep = ids[~bad]
+            if age < 3 and len(keep):
+                survivors.append((created_kf, keep))
+        self.recent_mp = survivors
+        if to_cull:
+            allc = np.concatenate(to_cull)
+            m.remove_map_points(allc)
+            self.stats["culled_mp"] += len(allc)
+
+    # ------------------------------------------------------------------
+    def create_new_map_points(self, kf_id: int, n_neighbors: int = 10):
+        """Reference CreateNewMapPoints: epipolar search + triangulation
+        against the best covisible keyframes, all in one device call."""
+        m = self.map
+        with m.lock:
+            disp = self._dispatch_triangulation(kf_id, n_neighbors)
+            if disp is None:
+                return
+            out_dev, nb_ids, c1, cap_new = disp
+            self._apply_triangulation(kf_id, out_dev.cpu().numpy(), nb_ids, c1, cap_new)
+
+    def _dispatch_triangulation(self, kf_id: int, n_neighbors: int):
+        m = self.map
+        neighbors = m.best_covisible(kf_id, n_neighbors, min_weight=15)
+        if len(neighbors) == 0 and m.n_kf >= 2:
+            neighbors = np.array([kf_id - 1], np.int32)
+        R1, t1 = m.kf_R[kf_id], m.kf_t[kf_id]
+        c1 = -R1.T @ t1
+        un1 = m.kf_feat_valid[kf_id] & (m.kf_feat_mp[kf_id] < 0)
+        if un1.sum() < 10:
+            return None
+        keep = []
+        for k2 in neighbors:
+            k2 = int(k2)
+            R2, t2 = m.kf_R[k2], m.kf_t[k2]
+            baseline = np.linalg.norm(c1 - (-R2.T @ t2))
+            mps2 = m.kf_feat_mp[k2]
+            mps2 = mps2[mps2 >= 0]
+            if len(mps2):
+                depths = (m.mp_xyz[mps2] @ R2.T + t2)[:, 2]
+                med = np.median(depths[depths > 0]) if (depths > 0).any() else 1.0
+                if baseline / max(med, 1e-9) < 0.01:
+                    continue
+            elif baseline < 1e-6:
+                continue
+            un2 = m.kf_feat_valid[k2] & (m.kf_feat_mp[k2] < 0)
+            if un2.sum() < 10:
+                continue
+            keep.append((k2, un2))
+        if not keep:
+            return None
+        B = 16 if len(keep) > 8 else 8
+        N = m.cfg.n_features
+        nb_ids = np.full(B, -1, np.int32)
+        un2_all = np.zeros((B, N), bool)
+        for i, (k2, un2) in enumerate(keep):
+            nb_ids[i] = k2
+            un2_all[i] = un2
+        poses2 = np.zeros((B, 12), np.float32)
+        poses2[: len(keep), 0:9] = m.kf_R[nb_ids[: len(keep)]].reshape(-1, 9)
+        poses2[: len(keep), 9:12] = m.kf_t[nb_ids[: len(keep)]]
+        pose1 = np.concatenate([R1.reshape(-1), t1]).astype(np.float32)
+        pool_xy, pool_desc, pool_oct = kf_pool_for(m, self.device).sync(
+            m, [kf_id] + [k for k, _ in keep])
+        cap_new = 2048
+        fn = kernels.triangulation_batched(
+            self.cam_type, self.orb_cfg.n_levels, self.orb_cfg.scale,
+            tuple(float(v) for v in self.K), cap_new=cap_new,
+            max_dist=50, sigma_n=1.0 / float(self.K[0]), device=self.device)
+        out_dev = fn(self._dev(pose1), pool_xy[kf_id], pool_desc[kf_id], pool_oct[kf_id],
+                     self._dev(un1), self._dev(nb_ids), self._dev(nb_ids >= 0),
+                     self._dev(poses2), self._dev(un2_all), pool_xy, pool_desc, pool_oct)
+        return out_dev, nb_ids, c1, cap_new
+
+    def _apply_triangulation(self, kf_id: int, out, nb_ids, c1, cap_new):
+        m = self.map
+        count = int(out[0])
+        if count == 0:
+            return
+        f1 = out[1: 1 + cap_new][:count]
+        f2 = out[1 + cap_new: 1 + 2 * cap_new][:count]
+        b = out[1 + 2 * cap_new: 1 + 3 * cap_new][:count]
+        xw = np.stack([out[1 + (3 + i) * cap_new: 1 + (4 + i) * cap_new][:count].view(np.float32)
+                       for i in range(3)], axis=1)
+        # a feature may triangulate against several neighbours — keep the
+        # first (neighbours are covisibility-ranked)
+        _, first = np.unique(f1, return_index=True)
+        first = np.sort(first)
+        f1, f2, b, xw = f1[first], f2[first], b[first], xw[first]
+        good = np.isfinite(xw).all(axis=1)
+        f1, f2, b, xw = f1[good], f2[good], b[good], xw[good]
+        if len(f1) == 0:
+            return
+        dirs = xw - c1
+        dist = np.linalg.norm(dirs, axis=1)
+        normals = dirs / np.maximum(dist[:, None], 1e-9)
+        sf = m.scale_factors
+        maxd = dist * sf[m.kf_feat_octave[kf_id, f1]]
+        mind = maxd / sf[-1]
+        ids = m.add_map_points(xw.astype(np.float32), m.kf_feat_desc[kf_id, f1], kf_id,
+                               normals, mind, maxd, first_kf=kf_id)
+        m.kf_feat_mp[kf_id, f1] = ids
+        m.kf_feat_mp[nb_ids[b], f2] = ids
+        m.mp_visible[ids] = 1
+        m.mp_found[ids] = 1
+        self.recent_mp.append((kf_id, ids))
+        self.stats["triangulated"] += len(ids)
+
+    # ------------------------------------------------------------------
+    def search_in_neighbors(self, kf_id: int, n_neighbors: int = 10, cap: int = 4096):
+        """Reference SearchInNeighbors + ORBmatcher::Fuse: project the new
+        keyframe's points into its covisible neighbours and the neighbours'
+        points into it, all targets in one device call; a match merges with
+        the feature's point (keep the more observed) or claims the feature."""
+        m = self.map
+        with m.lock:
+            neighbors = [int(k) for k in m.best_covisible(kf_id, n_neighbors, min_weight=15)]
+            if not neighbors:
+                return
+            kf_mps = m.kf_feat_mp[kf_id]
+            kf_mps = np.unique(kf_mps[kf_mps >= 0])
+            kf_mps = kf_mps[m.mp_valid[kf_mps]]
+            neigh_mps = m.local_map_points(np.asarray(neighbors, np.int32))
+            targets = neighbors + [kf_id]
+            T = 16 if len(targets) > 12 else 12
+            C = cap
+            tgt_ids = np.full(T, -1, np.int32)
+            tgt_ids[: len(targets)] = targets
+            tgt_poses = np.zeros((T, 12), np.float32)
+            tgt_poses[: len(targets), 0:9] = m.kf_R[targets].reshape(-1, 9)
+            tgt_poses[: len(targets), 9:12] = m.kf_t[targets]
+            N = m.cfg.n_features
+            tgt_fvalid = np.zeros((T, N), bool)
+            tgt_fvalid[: len(targets)] = m.kf_feat_valid[targets]
+            cand_ids = np.full((T, C), -1, np.int32)
+            for i in range(len(neighbors)):
+                cand_ids[i, : min(len(kf_mps), C)] = kf_mps[:C]
+            cand_ids[len(targets) - 1, : min(len(neigh_mps), C)] = neigh_mps[:C]
+            fn = kernels.fuse_batched(
+                self.cam_type, self.orb_cfg.n_levels, self.orb_cfg.scale,
+                tuple(float(v) for v in self.K),
+                (float(self.wh[0]), float(self.wh[1])), cap_cand=C, device=self.device)
+            mpf, mpu = mirror_for(m, self.device).sync(m)
+            pool_xy, pool_desc, pool_oct = kf_pool_for(m, self.device).sync(m, targets)
+            cap_out = 4096
+            out = fn(self._dev(tgt_ids), self._dev(tgt_poses), self._dev(tgt_fvalid),
+                     self._dev(cand_ids), mpf, mpu, pool_xy, pool_desc,
+                     pool_oct).cpu().numpy()
+            count = int(out[0])
+            if count:
+                t_i = out[1: 1 + cap_out][:count]
+                c_i = out[1 + cap_out: 1 + 2 * cap_out][:count]
+                f_i = out[1 + 2 * cap_out: 1 + 3 * cap_out][:count]
+                self._apply_fuse_matches(tgt_ids[t_i], cand_ids[t_i, c_i], f_i)
+            m.refresh_map_points(kf_mps)
+
+    def _apply_fuse_matches(self, tgt_kf: np.ndarray, mp_src: np.ndarray,
+                            feat_tgt: np.ndarray):
+        """Merge/claim bookkeeping for batched fuse matches (reference
+        MapPoint::Replace semantics: keep the more-observed point)."""
+        m = self.map
+        obs_cnt = m.obs_count()
+        replaced: dict[int, int] = {}
+        rep_old: list[int] = []
+        rep_new: list[int] = []
+        for mp, t, ft in zip(mp_src, tgt_kf, feat_tgt):
+            mp = int(mp)
+            mp = replaced.get(mp, mp)
+            if mp < 0 or not m.mp_valid[mp]:
+                continue
+            existing = int(m.kf_feat_mp[t, ft])
+            existing = replaced.get(existing, existing)
+            if existing == mp:
+                continue
+            if existing < 0 or not m.mp_valid[existing]:
+                m.kf_feat_mp[t, ft] = mp
+                continue
+            if obs_cnt[mp] >= obs_cnt[existing]:
+                old, new = existing, mp
+            else:
+                old, new = mp, existing
+            if replaced.get(old, old) != old:
+                continue
+            replaced[old] = new
+            rep_old.append(old)
+            rep_new.append(new)
+        if rep_old:
+            m.replace_map_points(np.asarray(rep_old, np.int64), np.asarray(rep_new, np.int64))
+
+    # ------------------------------------------------------------------
+    def cull_keyframes(self, kf_id: int, redundancy: float | None = None,
+                       max_cull_per_run: int = 20):
+        """Reference KeyFrameCulling: a covisible keyframe >= 90% of whose
+        map points are seen by >= 3 other keyframes at the same or finer
+        scale is removed (the first two keyframes always stay); the counts run
+        in the native C++ kernel, worst first, recomputed after each removal."""
+        if redundancy is None:
+            redundancy = self.kf_cull_redundancy
+        m = self.map
+
+        def redundancy_counts(cands):
+            red_tot = native.kf_redundancy(
+                m.kf_feat_mp[: m.n_kf], m.kf_valid[: m.n_kf],
+                m.kf_feat_octave[: m.n_kf], m.kf_feat_depth[: m.n_kf],
+                0.0, cands, m.cfg.max_map_points)
+            if red_tot is not None:
+                return red_tot
+            # numpy fallback: scale-unaware approximation
+            obs = m.obs_count()
+            red = np.zeros(len(cands), np.int32)
+            tot = np.zeros(len(cands), np.int32)
+            for i, k in enumerate(cands):
+                row = m.kf_feat_mp[k]
+                mps = row[row >= 0]
+                mps = mps[m.mp_valid[mps]]
+                tot[i] = len(mps)
+                red[i] = int((obs[mps] > 3).sum())
+            return red, tot
+
+        n_culled = 0
+        while n_culled < max_cull_per_run:
+            candidates = np.asarray(
+                [int(k) for k in m.best_covisible(kf_id, m.n_kf, min_weight=15)
+                 if k > 1 and k != kf_id and m.kf_valid[k]], np.int32)
+            if len(candidates) == 0:
+                return
+            red, tot = redundancy_counts(candidates)
+            frac = red / np.maximum(tot, 1)
+            frac[tot < 20] = 0.0
+            culled_this_round = False
+            for i in np.argsort(-frac):
+                k = int(candidates[i])
+                if tot[i] < 20 or red[i] <= redundancy * tot[i]:
+                    break
+                if self.tracker is not None:
+                    self.tracker.reanchor_trajectory(k)
+                m.remove_keyframe(k)
+                self.stats["culled_kf"] = self.stats.get("culled_kf", 0) + 1
+                n_culled += 1
+                culled_this_round = True
+                break
+            if not culled_this_round:
+                return
+
+    # ------------------------------------------------------------------
+    def local_ba(self, kf_id: int, iters: tuple[int, int] = (5, 10)):
+        """Reference LocalBundleAdjustment: window = keyframe + covisibles,
+        fixed = other observers (min 2), two-phase schedule, one packed read
+        of the result, outlier observations erased."""
+        m = self.map
+        with m.lock:
+            prob_data = self._gather_local_ba(kf_id)
+            if prob_data is None:
+                return
+            prob, all_kfs, fixed_mask, pts, o_src_kf, o_src_feat, n_obs = prob_data
+            res = ba_ops.local_ba(prob, self._K_dev, cam_type=self.cam_type,
+                                  chi2_th=ba_ops.CHI2_MONO, iters1=iters[0], iters2=iters[1])
+            Kb = int(prob.R.shape[0])
+            Pb = int(prob.pts.shape[0])
+            Ob = int(prob.obs_kf.shape[0])
+            buf = kernels.ba_result_packer()(res.R, res.t, res.pts,
+                                             res.obs_inlier).cpu().numpy()
+            Rn = buf[0: Kb * 9].view(np.float32).reshape(Kb, 3, 3)[: len(all_kfs)]
+            tn = buf[Kb * 9: Kb * 12].view(np.float32).reshape(Kb, 3)[: len(all_kfs)]
+            ptsn = buf[Kb * 12: Kb * 12 + Pb * 3].view(np.float32).reshape(Pb, 3)
+            inl = kernels.unpack_bits_host(buf[Kb * 12 + Pb * 3:], Ob)[: n_obs]
+            for i, k in enumerate(all_kfs):
+                if not fixed_mask[i] and m.kf_valid[k]:
+                    m.kf_R[k] = Rn[i]
+                    m.kf_t[k] = tn[i]
+            keep = m.mp_valid[pts]
+            m.mp_xyz[pts[keep]] = ptsn[: len(pts)][keep]
+            m.touch()
+            bad = ~inl & (o_src_feat >= 0)
+            if bad.any():
+                m.kf_feat_mp[o_src_kf[bad], o_src_feat[bad]] = -1
+        self.stats["ba_runs"] += 1
+
+    def _gather_local_ba(self, kf_id: int):
+        m = self.map
+        window = [kf_id] + [int(k) for k in m.best_covisible(kf_id, self.ba_window - 1,
+                                                             min_weight=15)]
+        window = list(dict.fromkeys(window))
+        pts = m.local_map_points(np.asarray(window, np.int32))[: self.ba_point_cap]
+        if len(pts) < 20 or len(window) < 2:
+            return None
+        kf_idx, feat_idx = m.observations_of(pts)
+        obs_mp_global = m.kf_feat_mp[kf_idx, feat_idx]
+        outside = np.setdiff1d(np.unique(kf_idx), np.asarray(window))
+        fixed_kfs = [int(k) for k in outside[: self.ba_max_fixed]]
+        all_kfs = window + fixed_kfs
+        fixed_mask = np.zeros(len(all_kfs), bool)
+        fixed_mask[len(window):] = True
+        # at least 2 fixed cameras: fewer leaves monocular BA a free scale gauge
+        n_need = 2 - int(fixed_mask.sum())
+        if n_need > 0:
+            for idx in np.argsort([m.kf_frame_id[k] for k in all_kfs]):
+                if n_need == 0:
+                    break
+                if not fixed_mask[idx]:
+                    fixed_mask[idx] = True
+                    n_need -= 1
+        kf_lut = np.full(m.cfg.max_keyframes, -1, np.int32)
+        kf_lut[np.asarray(all_kfs)] = np.arange(len(all_kfs))
+        mp_lut = np.full(m.cfg.max_map_points, -1, np.int32)
+        mp_lut[pts] = np.arange(len(pts))
+        sel = (kf_lut[kf_idx] >= 0) & (mp_lut[obs_mp_global] >= 0)
+        o_kf = kf_lut[kf_idx[sel]]
+        o_mp = mp_lut[obs_mp_global[sel]]
+        o_uv = m.kf_feat_xy[kf_idx[sel], feat_idx[sel]]
+        o_ur = m.kf_feat_ur[kf_idx[sel], feat_idx[sel]]
+        o_is2 = m.inv_level_sigma2[m.kf_feat_octave[kf_idx[sel], feat_idx[sel]]]
+        o_src_kf = kf_idx[sel]
+        o_src_feat = feat_idx[sel]
+        # the reference's size buckets: same padded shapes, same problem caps
+        Kb = self._bucket(len(all_kfs), [4, 8, 12, 16, 24, 32])
+        Pb = self._bucket(len(pts), [256, 512, 1024, 2048, 4096])
+        Ob = self._bucket(len(o_kf), [1024, 2048, 4096, 8192, 16384, 32768])
+        if Kb is None or Pb is None or Ob is None:
+            return None
+
+        def pad(a, n, fill=0):
+            out = np.full((n,) + a.shape[1:], fill, a.dtype)
+            out[: len(a)] = a
+            return self._dev(out)
+
+        R_pad = np.zeros((Kb, 3, 3), np.float32)
+        R_pad[:] = np.eye(3)
+        R_pad[: len(all_kfs)] = m.kf_R[all_kfs]
+        prob = ba_ops.BAProblem(
+            R=self._dev(R_pad),
+            t=pad(m.kf_t[all_kfs], Kb),
+            pts=pad(m.mp_xyz[pts], Pb),
+            obs_kf=pad(o_kf.astype(np.int32), Ob),
+            obs_mp=pad(o_mp.astype(np.int32), Ob),
+            obs_uv=pad(o_uv.astype(np.float32), Ob),
+            obs_inv_sigma2=pad(o_is2.astype(np.float32), Ob, 1.0),
+            obs_valid=pad(np.ones(len(o_kf), bool), Ob, False),
+            fixed_pose=pad(fixed_mask, Kb, True),
+            obs_ur=pad(o_ur.astype(np.float32), Ob, -1.0),
+            bf=0.0,
+        )
+        return prob, all_kfs, fixed_mask, pts, o_src_kf, o_src_feat, len(o_kf)
+
+    @staticmethod
+    def _bucket(n: int, buckets):
+        for b in buckets:
+            if n <= b:
+                return b
+        return None
