@@ -11,6 +11,7 @@ Packing layout (two buffers, one upload each):
 """
 from __future__ import annotations
 
+import threading
 import weakref
 
 import numpy as np
@@ -113,25 +114,40 @@ class DeviceMapMirror:
 
 
 # ---------------------------------------------------------------------------
-# Shared per-map registries: tracker and mapper reuse ONE mirror and ONE
-# keyframe pool per (MapState, device), weakly keyed by the map so retired
-# maps free their device memory with the host object.
+# Shared per-map registries: ONE mirror and ONE keyframe pool per (MapState,
+# device, CUDA stream), weakly keyed by the map so retired maps free their
+# device memory with the host object. The synchronous system has one stream,
+# so tracker and mapper share a mirror. The asynchronous mapper thread runs
+# on a stream of its own and so gets its own mirror and pool: a mirror's
+# tensors are allocated, written and read on one stream only, which keeps the
+# tracker's stream free of the mapper's queued work with no event, and no
+# caching-allocator hazard, between the two. A stale mirror re-uploads from
+# the host map (the source of truth) by ``device_version`` as before.
 # ---------------------------------------------------------------------------
 _MIRRORS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _KF_POOLS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_REGISTRY_LOCK = threading.Lock()
+
+
+def _stream_key(device) -> tuple:
+    device = torch.device(device)
+    if device.type != "cuda":
+        return (str(device), 0)
+    return (str(device), torch.cuda.current_stream(device).stream_id)
+
+
+def _for(registry, cls, m, device):
+    key = _stream_key(device)
+    with _REGISTRY_LOCK:
+        by_key = registry.setdefault(m, {})
+        if key not in by_key:
+            by_key[key] = cls(device)
+        return by_key[key]
 
 
 def mirror_for(m, device) -> DeviceMapMirror:
-    by_dev = _MIRRORS.setdefault(m, {})
-    key = str(torch.device(device))
-    if key not in by_dev:
-        by_dev[key] = DeviceMapMirror(device)
-    return by_dev[key]
+    return _for(_MIRRORS, DeviceMapMirror, m, device)
 
 
 def kf_pool_for(m, device) -> DeviceKfPool:
-    by_dev = _KF_POOLS.setdefault(m, {})
-    key = str(torch.device(device))
-    if key not in by_dev:
-        by_dev[key] = DeviceKfPool(device)
-    return by_dev[key]
+    return _for(_KF_POOLS, DeviceKfPool, m, device)

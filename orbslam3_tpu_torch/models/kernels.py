@@ -6,9 +6,10 @@ and returns a closure over torch tensors. Packed-output layouts are the
 reference's, word for word, so host bookkeeping reads the same buffers.
 
 Every masked windowed Hamming top-2 — the staged and pooled projection
-matchers, both radii of the fused tracker and the batched fuse — goes through
-``ops.match_rows.match_rows``: the Hopper kernel for CUDA tensors, its plain
-PyTorch version for CPU tensors.
+matchers, the fused tracker and the batched fuse — goes through
+``ops.match_rows``: ``match_rows`` for one radius, ``match_rows_dual`` for the
+fused tracker's radius / 2x-radius pair (one launch); the Hopper kernels for
+CUDA tensors, their plain PyTorch versions for CPU tensors.
 """
 from __future__ import annotations
 
@@ -17,10 +18,25 @@ import functools
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..ops import camera as cam_ops
 from ..ops import lie, matching, triangulation
 from ..ops.features import f32_bits, fold_u32_to_i32
-from ..ops.match_rows import match_rows
+from ..ops.match_rows import match_rows, match_rows_dual
+
+
+def _cached_per_device(factory):
+    """``functools.lru_cache`` for a factory that takes ``device``: the key
+    holds the resolved device's name, so ``device=None`` (the CUDA card) and
+    ``device="cpu"`` never share an entry, and a missing card raises here."""
+    cached = functools.lru_cache(maxsize=None)(factory)
+
+    @functools.wraps(factory)
+    def wrapper(*args, device=None, **kw):
+        return cached(*args, device=str(resolve_device(device)), **kw)
+
+    wrapper.cache_clear = cached.cache_clear
+    return wrapper
 
 
 def _levels(scale: float, n_levels: int, device):
@@ -56,9 +72,9 @@ def _ratio_ok(best, second, ratio, max_dist):
     return (best <= max_dist) & (best.to(torch.float32) < ratio * second.to(torch.float32))
 
 
-@functools.lru_cache(maxsize=None)
+@_cached_per_device
 def projection_matcher(cam_type: int, n_levels: int, scale: float,
-                       octave_lo: int = 1, octave_hi: int = 1, device="cpu"):
+                       octave_lo: int = 1, octave_hi: int = 1, device=None):
     """Fused frustum-check + projection-window matcher.
 
     fn(mp_xyz (M,3), mp_desc (M,8), mp_normal (M,3), mp_mind (M,), mp_maxd (M,),
@@ -133,8 +149,8 @@ def _epipolar_ok(rays1, xy2, oct2, R21, t21, camp, sf2):
     return dsq < 3.84 * sf2[oct2.long()][..., None, :]
 
 
-@functools.lru_cache(maxsize=None)
-def triangulation_matcher(cam_type: int, n_levels: int, scale: float, device="cpu"):
+@_cached_per_device
+def triangulation_matcher(cam_type: int, n_levels: int, scale: float, device=None):
     """Epipolar-constrained matching of two keyframes' features + DLT
     triangulation + acceptance gates → (idx (N,), ok (N,), xw (N,3), depths)."""
     sf2 = torch.tensor([(scale ** i) ** 2 for i in range(n_levels)], dtype=torch.float32,
@@ -213,28 +229,29 @@ def _make_pool_matcher(cam_type: int, n_levels: int, scale: float, camp, whv, de
     the wide result selected by a scalar when the narrow one is thin)."""
     sf, log_scale = _levels(scale, n_levels, device)
 
-    def _one_radius(desc, frustum, uv, lvl, feat_xy, feat_desc, feat_octave,
-                    feat_valid, radius, ratio, max_dist):
-        idx, best, second = match_rows(desc, uv, radius * sf[lvl.long()], lvl, frustum,
-                                       feat_desc, feat_xy, feat_octave, feat_valid)
+    def _accept(idx, best, second, ratio, max_dist, n_feat):
         ok = _ratio_ok(best, second, ratio, max_dist)
-        return idx, matching.resolve_duplicates(idx, best, ok, feat_desc.shape[0])
+        return idx, matching.resolve_duplicates(idx, best, ok, n_feat)
 
     def _match(xyz, desc, normal, mind, maxd, mvalid, R, t,
                feat_xy, feat_desc, feat_octave, feat_valid,
                radius, ratio, max_dist, view_cos_th, retry_min=0):
         uv, lvl, frustum = _frustum(xyz, normal, mind, maxd, mvalid, R, t, cam_type,
                                     camp, whv, view_cos_th, log_scale, n_levels)
-        idx, ok = _one_radius(desc, frustum, uv, lvl, feat_xy, feat_desc, feat_octave,
-                              feat_valid, radius, ratio, max_dist)
-        if retry_min:
-            idx_w, ok_w = _one_radius(desc, frustum, uv, lvl, feat_xy, feat_desc,
-                                      feat_octave, feat_valid, 2.0 * radius, ratio,
-                                      max_dist)
-            use_wide = torch.sum(ok, dtype=torch.int32) < retry_min
-            idx = torch.where(use_wide, idx_w, idx)
-            ok = torch.where(use_wide, ok_w, ok)
-        return idx, ok, frustum
+        rad = radius * sf[lvl.long()]
+        n_feat = feat_desc.shape[0]
+        feats = (feat_desc, feat_xy, feat_octave, feat_valid)
+        if not retry_min:
+            idx, ok = _accept(*match_rows(desc, uv, rad, lvl, frustum, *feats),
+                              ratio, max_dist, n_feat)
+            return idx, ok, frustum
+        # one launch for both radii; 2·(radius·sf) and (2·radius)·sf are the
+        # same float32, so this equals two launches at radius and 2·radius
+        narrow, wide = match_rows_dual(desc, uv, rad, lvl, frustum, *feats, wide=2.0)
+        idx, ok = _accept(*narrow, ratio, max_dist, n_feat)
+        idx_w, ok_w = _accept(*wide, ratio, max_dist, n_feat)
+        use_wide = torch.sum(ok, dtype=torch.int32) < retry_min
+        return torch.where(use_wide, idx_w, idx), torch.where(use_wide, ok_w, ok), frustum
 
     return _match
 
@@ -246,13 +263,13 @@ def _assign(n_feat: int, idx, ok, device):
         0, idx.long(), cand, "amax", include_self=True)
 
 
-@functools.lru_cache(maxsize=None)
+@_cached_per_device
 def fused_track_pooled(cam_type: int, n_levels: int, scale: float,
                        cam_params: tuple, wh: tuple, bf: float,
                        motion_radius: float, local_radius: float,
                        motion_ratio: float, local_ratio: float,
                        th_high: int, pose_rounds: int = 2,
-                       pose_iters: int = 10, device="cpu"):
+                       pose_iters: int = 10, device=None):
     """Per-frame visual tracking against the device-resident pool: last-frame
     points matched at the predicted pose → pose LM → local-map points matched
     at the refined pose → pose LM. ONE packed int32 result:
@@ -327,12 +344,12 @@ def fused_track_pooled(cam_type: int, n_levels: int, scale: float,
     return fn
 
 
-@functools.lru_cache(maxsize=None)
+@_cached_per_device
 def projection_assign_pooled(cam_type: int, n_levels: int, scale: float,
                              cam_params: tuple, wh: tuple,
                              radius: float, ratio: float, max_dist: int,
                              view_cos_th: float,
-                             octave_lo: int = 1, octave_hi: int = 1, device="cpu"):
+                             octave_lo: int = 1, octave_hi: int = 1, device=None):
     """Pooled projection matcher: ONE packed int32 result
     [0:C]=idx, then packbits(ok), then packbits(frustum).
 
@@ -359,10 +376,10 @@ def projection_assign_pooled(cam_type: int, n_levels: int, scale: float,
     return fn
 
 
-@functools.lru_cache(maxsize=None)
+@_cached_per_device
 def pose_opt_pooled(cam_type: int, cam_params: tuple, bf: float,
                     n_levels: int, scale: float,
-                    rounds: int = 4, iters: int = 10, device="cpu"):
+                    rounds: int = 4, iters: int = 10, device=None):
     """Pooled pose-only LM; world points gathered by the frame's
     feature→point assignment. ONE packed int32 result:
     [0:12]=bits(R,t), [12]=n_inl, then packbits(inlier).
@@ -394,10 +411,10 @@ def pose_opt_pooled(cam_type: int, cam_params: tuple, bf: float,
     return fn
 
 
-@functools.lru_cache(maxsize=None)
+@_cached_per_device
 def triangulation_batched(cam_type: int, n_levels: int, scale: float,
                           cam_params: tuple, cap_new: int = 2048,
-                          max_dist: int = 50, sigma_n: float = 1.0, device="cpu"):
+                          max_dist: int = 50, sigma_n: float = 1.0, device=None):
     """Epipolar matching + DLT triangulation of a new keyframe against all its
     covisible neighbours in one call (reference CreateNewMapPoints).
 
@@ -454,11 +471,11 @@ def triangulation_batched(cam_type: int, n_levels: int, scale: float,
     return fn
 
 
-@functools.lru_cache(maxsize=None)
+@_cached_per_device
 def fuse_batched(cam_type: int, n_levels: int, scale: float,
                  cam_params: tuple, wh: tuple, cap_cand: int = 4096,
                  cap_out: int = 4096, radius: float = 3.0,
-                 max_dist: int = 50, device="cpu"):
+                 max_dist: int = 50, device=None):
     """Projection fuse of candidate map points into several target keyframes
     in one call (reference SearchInNeighbors → ORBmatcher::Fuse); all
     targets' matching runs as one batched ``match_rows`` launch.

@@ -1,17 +1,25 @@
 """Local mapping: keyframe processing, triangulation, fuse, local BA, culling.
 
-Port of the visual, synchronous path of ``orbslam3_tpu/models/local_mapping.py``
+Port of the visual path of ``orbslam3_tpu/models/local_mapping.py``
 (reference LocalMapping::Run: ProcessNewKeyFrame → MapPointCulling →
 CreateNewMapPoints → SearchInNeighbors → LocalBundleAdjustment →
-KeyFrameCulling) as a host driver over the port's device steps. The sharded,
-inertial and global-BA branches are not ported (ROADMAP.md).
+KeyFrameCulling) as host code over the port's device steps. It serves the
+synchronous system (called inline per keyframe) and the asynchronous one
+(called from the mapper thread): every step gathers and writes back under the
+map lock and waits for the device outside it, so the tracker is never stalled
+behind a mapper round trip; ``abort_check`` skips local BA and keyframe
+culling while newer keyframes wait. Local BA is one call per phase in both
+modes: the reference's ``ba_chunk`` splits one compiled dispatch so that
+tracking kernels can interleave, and eager PyTorch already launches every
+operator by itself. The sharded, inertial and global-BA branches are not
+ported (ROADMAP.md).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, resolve_device
 from ..ops import ba as ba_ops
 from ..utils.timing import StageTimer
 from . import kernels
@@ -22,9 +30,9 @@ from .map import MapState
 class LocalMapper:
     def __init__(self, map_state: MapState, K: np.ndarray, orb_cfg,
                  wh=(752, 480), ba_window: int = 16, ba_max_fixed: int = 8,
-                 ba_point_cap: int = 4096, device="cpu"):
+                 ba_point_cap: int = 4096, device=None):
         self.map = map_state
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.K = np.asarray(K, np.float32)
         self.wh = np.asarray(wh, np.float32)
         self.orb_cfg = orb_cfg
@@ -58,9 +66,13 @@ class LocalMapper:
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=self.device)
 
     # ------------------------------------------------------------------
-    def process_keyframe(self, kf_id: int, initial: bool = False) -> int:
-        """One mapper round. Returns the keyframe's id, remapped if the
-        mapper compacted the pools."""
+    def process_keyframe(self, kf_id: int, initial: bool = False,
+                         abort_check=None) -> int:
+        """One mapper round. ``abort_check`` is the reference's
+        run-BA-only-when-idle rule: local BA and keyframe culling run only if
+        it is None or returns False (no newer keyframe queued, no stop
+        requested). Returns the keyframe's id, remapped if the mapper
+        compacted the pools."""
         m = self.map
         with m.lock:
             kf_id = m.maybe_compact(kf_id)
@@ -84,14 +96,19 @@ class LocalMapper:
                 return kf_id
             with self.timer.stage("6.mp_culling"):
                 self.cull_map_points(kf_id)
+        # triangulation, fuse and BA manage their own locking: they gather
+        # and enqueue under the map lock and wait for the device outside it.
+        # Pool indices stay stable meanwhile: compaction runs only in this
+        # thread (maybe_compact above).
         with self.timer.stage("7.mp_creation"):
             self.create_new_map_points(kf_id)
         with self.timer.stage("8.fuse"):
             self.search_in_neighbors(kf_id)
-        with self.timer.stage("9.local_ba"):
-            self.local_ba(kf_id)
-        with m.lock, self.timer.stage("10.kf_culling"):
-            self.cull_keyframes(kf_id)
+        if abort_check is None or not abort_check():
+            with self.timer.stage("9.local_ba"):
+                self.local_ba(kf_id)
+            with m.lock, self.timer.stage("10.kf_culling"):
+                self.cull_keyframes(kf_id)
         return kf_id
 
     def _renormalize_initial_scale(self, kf_id: int):
@@ -141,10 +158,12 @@ class LocalMapper:
         m = self.map
         with m.lock:
             disp = self._dispatch_triangulation(kf_id, n_neighbors)
-            if disp is None:
-                return
-            out_dev, nb_ids, c1, cap_new = disp
-            self._apply_triangulation(kf_id, out_dev.cpu().numpy(), nb_ids, c1, cap_new)
+        if disp is None:
+            return
+        out_dev, nb_ids, c1, cap_new = disp
+        out = out_dev.cpu().numpy()              # the wait, outside the lock
+        with m.lock:
+            self._apply_triangulation(kf_id, out, nb_ids, c1, cap_new)
 
     def _dispatch_triangulation(self, kf_id: int, n_neighbors: int):
         m = self.map
@@ -270,9 +289,10 @@ class LocalMapper:
             mpf, mpu = mirror_for(m, self.device).sync(m)
             pool_xy, pool_desc, pool_oct = kf_pool_for(m, self.device).sync(m, targets)
             cap_out = 4096
-            out = fn(self._dev(tgt_ids), self._dev(tgt_poses), self._dev(tgt_fvalid),
-                     self._dev(cand_ids), mpf, mpu, pool_xy, pool_desc,
-                     pool_oct).cpu().numpy()
+            out_dev = fn(self._dev(tgt_ids), self._dev(tgt_poses), self._dev(tgt_fvalid),
+                         self._dev(cand_ids), mpf, mpu, pool_xy, pool_desc, pool_oct)
+        out = out_dev.cpu().numpy()              # the wait, outside the lock
+        with m.lock:
             count = int(out[0])
             if count:
                 t_i = out[1: 1 + cap_out][:count]
@@ -377,20 +397,22 @@ class LocalMapper:
         m = self.map
         with m.lock:
             prob_data = self._gather_local_ba(kf_id)
-            if prob_data is None:
-                return
-            prob, all_kfs, fixed_mask, pts, o_src_kf, o_src_feat, n_obs = prob_data
-            res = ba_ops.local_ba(prob, self._K_dev, cam_type=self.cam_type,
-                                  chi2_th=ba_ops.CHI2_MONO, iters1=iters[0], iters2=iters[1])
-            Kb = int(prob.R.shape[0])
-            Pb = int(prob.pts.shape[0])
-            Ob = int(prob.obs_kf.shape[0])
-            buf = kernels.ba_result_packer()(res.R, res.t, res.pts,
-                                             res.obs_inlier).cpu().numpy()
-            Rn = buf[0: Kb * 9].view(np.float32).reshape(Kb, 3, 3)[: len(all_kfs)]
-            tn = buf[Kb * 9: Kb * 12].view(np.float32).reshape(Kb, 3)[: len(all_kfs)]
-            ptsn = buf[Kb * 12: Kb * 12 + Pb * 3].view(np.float32).reshape(Pb, 3)
-            inl = kernels.unpack_bits_host(buf[Kb * 12 + Pb * 3:], Ob)[: n_obs]
+        if prob_data is None:
+            return
+        prob, all_kfs, fixed_mask, pts, o_src_kf, o_src_feat, n_obs = prob_data
+        # the solve runs on the gathered snapshot, outside the lock
+        res = ba_ops.local_ba(prob, self._K_dev, cam_type=self.cam_type,
+                              chi2_th=ba_ops.CHI2_MONO, iters1=iters[0], iters2=iters[1])
+        Kb = int(prob.R.shape[0])
+        Pb = int(prob.pts.shape[0])
+        Ob = int(prob.obs_kf.shape[0])
+        buf = kernels.ba_result_packer()(res.R, res.t, res.pts,
+                                         res.obs_inlier).cpu().numpy()
+        Rn = buf[0: Kb * 9].view(np.float32).reshape(Kb, 3, 3)[: len(all_kfs)]
+        tn = buf[Kb * 9: Kb * 12].view(np.float32).reshape(Kb, 3)[: len(all_kfs)]
+        ptsn = buf[Kb * 12: Kb * 12 + Pb * 3].view(np.float32).reshape(Pb, 3)
+        inl = kernels.unpack_bits_host(buf[Kb * 12 + Pb * 3:], Ob)[: n_obs]
+        with m.lock:
             for i, k in enumerate(all_kfs):
                 if not fixed_mask[i] and m.kf_valid[k]:
                     m.kf_R[k] = Rn[i]

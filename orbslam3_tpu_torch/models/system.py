@@ -1,10 +1,18 @@
 """System facade: wires tracking + local mapping for the monocular rig.
 
-Port of the monocular, synchronous path of ``orbslam3_tpu/models/system.py``:
-``SlamSystem(..., mapping_mode="sync", enable_loop_closing=False)`` with
-``track_monocular``, trajectory export and stats. The mapper runs inline per
-keyframe; every tensor lives on ``device``. Options this port does not have
-yet raise ``NotImplementedError`` naming the ROADMAP item.
+Port of the monocular visual path of ``orbslam3_tpu/models/system.py``:
+``SlamSystem(..., enable_loop_closing=False)`` with ``track_monocular``,
+trajectory export and stats. ``mapping_mode="sync"`` runs the mapper inline
+per keyframe (deterministic); ``"async"`` hands keyframes to the mapper
+thread of ``models/async_runtime.py``, and ``TrackingParams(pipeline=True)``
+adds the tracker's software pipeline. Everything that reads tracker state
+from outside (``state``, ``stats``, the trajectory export, ``shutdown``)
+first flushes the pipeline.
+
+Every tensor lives on ``device``; ``device=None`` is the CUDA card, and there
+is no fallback to the CPU. Options this port does not have yet (loop closing,
+stereo/RGB-D, KB8 end to end, the viewer) raise ``NotImplementedError`` naming
+the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -13,7 +21,9 @@ import time
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..ops import features as feat_ops
+from .async_runtime import AsyncRuntime
 from .atlas import Atlas
 from .local_mapping import LocalMapper
 from .map import MapConfig, MapState
@@ -34,20 +44,18 @@ class SlamSystem:
                  enable_loop_closing: bool = True, cam_type: int = 0,
                  mapping_mode: str = "sync",
                  kf_cull_redundancy: float = 0.9,
-                 use_viewer: bool = False, device="cpu"):
+                 use_viewer: bool = False, device=None):
         if enable_loop_closing:
             _not_ported("loop closing", "loop closing, vocabulary, Sim3 and merge")
-        if mapping_mode != "sync":
-            _not_ported(f"mapping_mode={mapping_mode!r}", "async mapping and the software pipeline")
-        if tracking_params is not None and tracking_params.pipeline:
-            _not_ported("TrackingParams.pipeline", "async mapping and the software pipeline")
+        if mapping_mode not in ("sync", "async"):
+            raise ValueError(f"mapping_mode must be 'sync' or 'async', got {mapping_mode!r}")
         if bf or th_depth:
             _not_ported("stereo / RGB-D", "stereo, RGB-D and KB8 end to end")
         if cam_type != 0:
             _not_ported("the KB8 camera end to end", "stereo, RGB-D and KB8 end to end")
         if use_viewer:
             _not_ported("the viewer", "map save and load, the viewer, the example drivers")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.orb_cfg = feat_ops.OrbConfig(n_features=n_features)
         cap = self.orb_cfg.total_capacity
         self.map_cfg = map_cfg or MapConfig(n_features=cap)
@@ -61,6 +69,11 @@ class SlamSystem:
         self.cam_type = 0
         self.tracker = Tracker(K, D, wh, self.orb_cfg, self.atlas.current,
                                params=tracking_params, seed=seed, device=self.device)
+        # async runtime: the mapper thread and its keyframe queue
+        self.runtime = None
+        if mapping_mode == "async":
+            self.runtime = AsyncRuntime(self)
+            self.tracker.mapper_accepting = self.runtime.accepting
         self._bind_map(self.atlas.current)
         self.tracker.on_tracking_lost = self._on_tracking_lost
         self.frame_times: list[float] = []
@@ -81,9 +94,17 @@ class SlamSystem:
         self.mapper.timer = self.timer
         self.mapper.kf_cull_redundancy = self._kf_cull_redundancy
         self.mapper.tracker = self.tracker
+        if self.runtime is not None:
+            m.on_remap["runtime"] = (
+                lambda kf_remap, mp_remap, _m=m: self.runtime.on_map_remap(_m, kf_remap))
 
         def on_kf(kf_id, initial=False):
-            # sync mapping: the mapper may compact the pools and remap the id
+            if self.runtime is not None and not initial:
+                # async: hand the keyframe to the mapper thread
+                self.runtime.insert_keyframe(kf_id, initial)
+                return
+            # sync, or the bootstrap BA, which tracking needs at once; the
+            # mapper may compact the pools and remap the id
             self.mapper.process_keyframe(kf_id, initial=initial)
 
         self.tracker.on_new_keyframe = on_kf
@@ -112,10 +133,18 @@ class SlamSystem:
         return info
 
     def wait_idle(self, timeout: float = 300.0) -> bool:
-        """Sync mapping: nothing is ever queued."""
-        return True
+        """Drain the async mapper (nothing is ever queued in sync mode)."""
+        if self.runtime is None:
+            return True
+        return self.runtime.wait_idle(timeout)
 
     def shutdown(self, timeout: float = 300.0, print_times: bool = True):
+        """Finalize in-flight frames, drain and join the mapper thread, and
+        print the per-stage timing table."""
+        self.tracker.flush_pending()
+        if self.runtime is not None:
+            self.runtime.shutdown(timeout)
+            self.runtime = None
         if print_times and self.timer.samples:
             from ..utils import verbose
             if verbose.get_verbosity() >= verbose.NORMAL:
@@ -123,9 +152,16 @@ class SlamSystem:
 
     @property
     def state(self) -> TrackState:
+        """The tracking state after the last frame handed in (finalizes any
+        frame still in the software pipeline)."""
+        self.tracker.flush_pending()
         return self.tracker.state
 
+    def get_tracking_state(self) -> TrackState:
+        return self.state
+
     def export_trajectory(self):
+        self.tracker.flush_pending()
         return self.tracker.export_trajectory()
 
     def save_trajectory_tum(self, path: str):
@@ -139,6 +175,7 @@ class SlamSystem:
                         + " " + " ".join(f"{v:.7f}" for v in q[i]) + "\n")
 
     def stats(self) -> dict:
+        self.tracker.flush_pending()
         ft = np.array(self.frame_times) if self.frame_times else np.zeros(1)
         return {
             "n_frames": len(self.frame_times),

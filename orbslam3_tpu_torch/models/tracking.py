@@ -5,11 +5,20 @@ host state machine is the reference's (NOT_INITIALIZED / OK / RECENTLY_LOST /
 LOST), only the device calls change. It covers monocular initialization
 (two-view H/F RANSAC → initial map), the fused per-frame tracker
 (``kernels.fused_track_pooled``), the staged fallback cascade (motion model
-with 2x-radius retry, reference keyframe, local map), the keyframe policy
-and trajectory logging/export.
+with 2x-radius retry, reference keyframe, local map), relocalization against
+recent keyframes (descriptor matching → PnP RANSAC → MLPnP refinement → pose
+LM → guided rescue rounds), the software pipeline
+(``TrackingParams.pipeline``, depth 1 and 2), the keyframe policy with the
+mapper's back-pressure gate, and trajectory logging/export.
 
-Not ported yet (ROADMAP.md): relocalization (``_relocalize`` returns False),
-the software pipeline, stereo/RGB-D front ends and the IMU paths.
+The pipeline's packed result travels to the host as a non-blocking copy into
+pinned memory followed by a CUDA event; consuming a frame waits on that event
+only, never on the whole device (the mapper thread may have work queued on
+its own stream).
+
+Not ported yet (ROADMAP.md): the BoW relocalization candidates and cross-map
+relocalization (their hooks exist and stay None), stereo/RGB-D front ends and
+the IMU paths (``_track_with_prediction``).
 """
 from __future__ import annotations
 
@@ -19,7 +28,12 @@ from enum import Enum
 import numpy as np
 import torch
 
+from .. import resolve_device
+from ..ops import camera as cam_ops
 from ..ops import features as feat_ops
+from ..ops import matching as match_ops
+from ..ops import pnp as pnp_ops
+from ..utils import verbose
 from ..utils.timing import StageTimer
 from . import kernels
 from .device_map import mirror_for
@@ -72,8 +86,8 @@ class Tracker:
     def __init__(self, K: np.ndarray, D: np.ndarray | None, wh: tuple[int, int],
                  orb_cfg: feat_ops.OrbConfig, map_state: MapState,
                  params: TrackingParams | None = None, seed: int = 0,
-                 device="cpu"):
-        self.device = torch.device(device)
+                 device=None):
+        self.device = resolve_device(device)
         self.cam_type = 0
         self.cam_params = np.asarray(K, np.float32)
         self.K = np.asarray(K, np.float32)[:4]
@@ -95,12 +109,16 @@ class Tracker:
                                                K=self.K, D=self.D, device=dev)
         self.match_init = kernels.init_matcher()
         self.two_view = kernels.two_view_kernel(sigma_n=1.0 / float(self.K[0]))
+        self.pose_opt = kernels.pose_opt_kernel(cam_type=self.cam_type)
         self._cam_key = tuple(float(v) for v in self.cam_params)
         self._wh_key = (float(wh[0]), float(wh[1]))
+        # a deeper pipeline predicts further ahead: widen the search windows
+        depth = max(1, int(self.p.pipeline_depth))
+        r_scale = 1.0 + 0.5 * (depth - 1)
         self.fused_track = kernels.fused_track_pooled(
             self.cam_type, orb_cfg.n_levels, orb_cfg.scale,
             self._cam_key, self._wh_key, 0.0,
-            float(self.p.motion_radius), float(self.p.local_radius),
+            float(self.p.motion_radius * r_scale), float(self.p.local_radius * r_scale),
             float(self.p.motion_ratio), float(self.p.local_ratio),
             int(self.p.th_high), device=dev)
         self.pose_opt_pooled = kernels.pose_opt_pooled(
@@ -109,18 +127,33 @@ class Tracker:
         self._ur_dev = torch.full((orb_cfg.total_capacity,), -1.0,
                                   dtype=torch.float32, device=dev)
 
+        # bumped on whole-world transforms (the reference's IMU alignment):
+        # a pipelined dispatch in flight across one is dropped at consume
+        self.world_epoch = 0
         self.init_frame: Frame | None = None
         self.last_frame: Frame | None = None
+        self._pending: list = []   # in-flight pipelined frames (FIFO, ≤ depth)
         self.velocity: tuple[np.ndarray, np.ndarray] | None = None  # T_cl
         self.ref_kf: int = -1
         self.last_kf_frame_id: int = -1
         self._last_kf_ts: float = -1e18
         self._last_reloc_frame_id: int = -(10 ** 9)
+        self.frames_since_reloc = 0
         self.n_frames = 0
         self.inlier_ema: float | None = None
-        # frames tracked by the fused step / sent down the staged cascade
-        self.path_counts = {"fused": 0, "staged": 0}
+        # frames tracked by the fused step (first try / synchronous retry
+        # after a pipelined miss) / sent down the staged cascade / recovered
+        # by _relocalize
+        self.path_counts = {"fused": 0, "fused_retry": 0, "staged": 0, "reloc_frames": 0}
+        # Atlas hooks (set by the system): sustained loss, and relocalization
+        # into a stored map (None until the merge is ported)
         self.on_tracking_lost = None
+        self.try_cross_map_reloc = None
+        # optional BoW relocalization-candidate provider (None until the
+        # keyframe database is ported): fn(desc, valid) → keyframe ids
+        self.reloc_candidates_fn = None
+        # async back-pressure: callable → bool (the mapper's queue<3 gate)
+        self.mapper_accepting = None
         self.consecutive_lost = 0
         self.frames_to_new_map = 20
         # per-frame trajectory log: (ts, ref_kf, R_cr, t_cr, lost)
@@ -188,6 +221,8 @@ class Tracker:
             self.last_frame = None
 
     def process_frame(self, img: np.ndarray, ts: float) -> dict:
+        if self.p.pipeline:
+            return self._process_frame_pipelined(img, ts)
         self._timestamp_guard(ts)
         fid = self.n_frames
         self.n_frames += 1
@@ -206,6 +241,98 @@ class Tracker:
             self._log_trajectory(frame, tracked=ok)
         self.last_frame = frame
         return info
+
+    # ------------------------------------------------------------------
+    # the software pipeline
+    # ------------------------------------------------------------------
+    def _process_frame_pipelined(self, img: np.ndarray, ts: float) -> dict:
+        """Software pipeline (``TrackingParams.pipeline``): extract frame N
+        and dispatch its fused tracking at once; its packed result is read at
+        the start of call N+depth, so the device's tail and the copy to the
+        host overlap the caller's time between frames and the next frame's
+        extraction. Returns the info of the frame finalized in this call."""
+        fid = self.n_frames
+        self.n_frames += 1
+        with self.timer.stage("1.orb_extraction"):
+            img_t = torch.as_tensor(np.asarray(img, np.float32), device=self.device)
+            frame = build_frame(fid, ts, self.extract(img_t))
+        return self._pipeline_step(frame, ts)
+
+    def _pipeline_step(self, frame: Frame, ts: float) -> dict:
+        """Flush the oldest in-flight frame, then dispatch this frame's fused
+        tracking (or fall back to the staged cascade)."""
+        depth = max(1, int(self.p.pipeline_depth))
+        info_prev = None
+        if len(self._pending) >= depth:
+            info_prev = self._flush_one()
+        self._timestamp_guard(ts)
+        with locked_current(self):
+            if self.state == TrackState.NOT_INITIALIZED:
+                info_prev = self.flush_pending() or info_prev
+                ok = self._monocular_init(frame)
+                self._log_trajectory(frame, tracked=ok)
+                self.last_frame = frame
+                return {"state": self.state.name, "init": ok}
+            if self._can_fuse_track():
+                with self.timer.stage("3f.fused_dispatch"):
+                    pend = self._fused_dispatch(frame)
+                if pend is not None:
+                    self._pending.append(pend)
+                    return info_prev if info_prev is not None else {
+                        "state": self.state.name, "pending": True}
+            # the staged path needs a fully consumed state: drain the pipeline
+            info_prev = self.flush_pending() or info_prev
+            with self.timer.stage("3.track_total"):
+                ok = self._track(frame, allow_fused=False)
+            self._log_trajectory(frame, tracked=ok)
+            self.last_frame = frame
+            return {"state": self.state.name,
+                    "inliers": frame.n_matched() if ok else 0}
+
+    def flush_pending(self) -> dict | None:
+        """Finalize ALL in-flight pipelined frames (no-op without any). Must
+        run before tracker state is read from outside: the system calls it
+        from stats(), state, shutdown() and the trajectory export."""
+        info = None
+        while self._pending:
+            info = self._flush_one() or info
+        return info
+
+    def _flush_one(self) -> dict | None:
+        if not self._pending:
+            return None
+        pend = self._pending.pop(0)
+        frame = pend["frame"]
+        with locked_current(self):
+            if (pend["map"] is not self.map
+                    or pend["map"].remap_epoch != pend["epoch"]
+                    or pend["wepoch"] != self.world_epoch):
+                # dispatched against a map that was replaced, compacted or
+                # re-aligned since: its candidate ids mean nothing now
+                return None
+            self.current_frame = frame
+            with self.timer.stage("3g.fused_consume"):
+                ok = self._fused_consume(pend)
+            if ok:
+                self.path_counts["fused"] += 1
+            if not ok and self._can_fuse_track():
+                # stale-candidate miss (a deep pipeline dispatches with lagged
+                # candidate sets): one synchronous fused retry with CURRENT
+                # candidates before the staged cascade
+                frame.feat_mp[:] = -1
+                with self.timer.stage("3g.fused_retry"):
+                    ok = self._track_fused(frame)
+                if ok:
+                    self.path_counts["fused_retry"] += 1
+            if ok:
+                self._post_track(frame, True)
+            else:
+                frame.feat_mp[:] = -1
+                ok = self._track(frame, allow_fused=False)
+            self._log_trajectory(frame, tracked=ok)
+            self.last_frame = frame
+            return {"state": self.state.name,
+                    "inliers": frame.n_matched() if ok else 0}
 
     # ------------------------------------------------------------------
     # initialization
@@ -352,7 +479,11 @@ class Tracker:
                 if not ok:
                     ok = self._track_reference_kf(frame)
         elif not ok:
+            # lost: relocalize against recent keyframes, then (once the merge
+            # is ported) into a stored map
             ok = self._relocalize(frame)
+            if not ok and self.try_cross_map_reloc is not None:
+                ok = self.try_cross_map_reloc(frame)
 
         if ok and not getattr(frame, "_fused_done", False):
             with self.timer.stage("3b.track_local_map"):
@@ -363,10 +494,92 @@ class Tracker:
         self._post_track(frame, ok)
         return ok
 
-    def _relocalize(self, frame: Frame) -> bool:
-        """Relocalization (and ``ops/pnp.py``) is not ported yet: a lost frame
-        stays lost until the loss handler spawns a new map (ROADMAP.md)."""
+    def _relocalize(self, frame: Frame, n_candidates: int = 8,
+                    in_map: MapState | None = None) -> bool:
+        """Try recent keyframes as relocalization anchors: descriptor-match
+        the keyframe's map-point features to the frame (ratio 0.75), PnP
+        RANSAC + MLPnP refinement for the initial pose (the keyframe's own
+        pose is the fallback seed), pose LM, and for a near miss the guided
+        rescue: two projection rounds (radius 10, then 3), each followed by a
+        re-optimization. Accepts at ``min_local_inliers``."""
+        m = in_map if in_map is not None else self.map
+        cands = list(m.valid_kf_ids()[::-1][:n_candidates])
+        if self.reloc_candidates_fn is not None and in_map is None:
+            # BoW inverted-file candidates first when a database is bound;
+            # recent keyframes remain the fallback anchors
+            try:
+                bow_cands = self.reloc_candidates_fn(frame.desc, frame.valid)
+                cands = [int(c) for c in bow_cands] + \
+                    [c for c in cands if int(c) not in set(map(int, bow_cands))]
+            except Exception as e:   # keep reloc alive, but surface the defect
+                verbose.print_mess(f"relocalization candidate query failed: {e!r}",
+                                   verbose.NORMAL)
+        dev = frame.dev
+        for k in cands:
+            k = int(k)
+            has_mp = m.kf_feat_valid[k] & (m.kf_feat_mp[k] >= 0)
+            if has_mp.sum() < 15:
+                continue
+            idx, _, ok = match_ops.search_by_descriptor(
+                self._dev(m.kf_feat_desc[k].view(np.int32)), self._dev(has_mp),
+                dev.desc, dev.valid, max_dist=match_ops.TH_LOW, ratio=0.75)
+            okn = ok.cpu().numpy()
+            if okn.sum() < 15:
+                continue
+            idxn = idx.cpu().numpy()
+            frame.feat_mp[:] = -1
+            src = np.nonzero(okn)[0]
+            frame.feat_mp[idxn[src]] = m.kf_feat_mp[k][src]
+            frame.R = m.kf_R[k].copy()
+            frame.t = m.kf_t[k].copy()
+            matched = np.nonzero(frame.feat_mp >= 0)[0]
+            if len(matched) >= 10:
+                self._pnp_seed(frame, m, matched)
+            inl = self._optimize_frame_pose(frame, in_map=m)
+            if 10 <= inl < self.p.min_local_inliers:
+                group = np.concatenate([[k], m.best_covisible(k, 10, min_weight=15)])
+                mps = m.local_map_points(group.astype(np.int32))
+                for radius in (10.0, 3.0):
+                    if len(mps) == 0:
+                        break
+                    added = self._project_and_assign(
+                        frame, mps, 2048, radius=radius, ratio=0.9,
+                        max_dist=match_ops.TH_HIGH, in_map=m)
+                    if added == 0:
+                        continue
+                    inl = self._optimize_frame_pose(frame, in_map=m)
+                    if inl >= self.p.min_local_inliers:
+                        break
+            if inl >= self.p.min_local_inliers:
+                self.ref_kf = k
+                self.frames_since_reloc = 0
+                self._last_reloc_frame_id = frame.frame_id
+                self.path_counts["reloc_frames"] += 1
+                return True
         return False
+
+    def _pnp_seed(self, frame: Frame, m: MapState, matched: np.ndarray) -> None:
+        """PnP RANSAC over the frame's matches + MLPnP refinement on its
+        inliers; overwrites the frame pose when RANSAC succeeds. The 128
+        six-point sets come from the tracker's host generator."""
+        xw = self._dev(m.mp_xyz[frame.feat_mp[matched]].astype(np.float32))
+        rays = cam_ops.unproject(self.cam_type, self._dev(self.cam_params),
+                                 self._dev(frame.xy[matched]))
+        rand = self.rng.integers(0, len(matched), (128, 6)).astype(np.int32)
+        inv_s2 = self.inv_sigma2[frame.octave[matched]].astype(np.float32)
+        focal = float(self.K[0])
+        res = pnp_ops.pnp_ransac(
+            xw, rays, torch.ones(len(matched), dtype=torch.bool, device=self.device),
+            self._dev(rand), self._dev(inv_s2), focal=focal)
+        if not bool(res.success):
+            return
+        Rr, tr = pnp_ops.mlpnp_refine(xw, rays, self._dev(inv_s2 * focal ** 2),
+                                      res.inliers, res.R, res.t)
+        Rr, tr = Rr.cpu().numpy(), tr.cpu().numpy()
+        if np.isfinite(Rr).all() and np.isfinite(tr).all():
+            frame.R, frame.t = Rr, tr
+        else:
+            frame.R, frame.t = res.R.cpu().numpy(), res.t.cpu().numpy()
 
     def _post_track(self, frame: Frame, ok: bool) -> None:
         """State-machine epilogue: motion model, keyframe policy, loss."""
@@ -453,10 +666,11 @@ class Tracker:
 
     def _project_and_assign(self, frame: Frame, mp_ids: np.ndarray, cap: int,
                             radius: float, ratio: float, max_dist: int,
-                            view_cos: float = 0.5, count_visible: bool = False) -> int:
+                            view_cos: float = 0.5, count_visible: bool = False,
+                            in_map: MapState | None = None) -> int:
         """Pooled frustum+projection matcher: uploads pose + one id vector,
         reads one packed buffer."""
-        m = self.map
+        m = in_map if in_map is not None else self.map
         mp_ids = np.asarray(mp_ids, np.int32)[:cap]
         mp_ids = mp_ids[m.mp_valid[mp_ids]]
         n = len(mp_ids)
@@ -486,10 +700,12 @@ class Tracker:
             m.mp_visible[ids[:n][vis]] += 1
         return len(sel)
 
-    def _optimize_frame_pose(self, frame: Frame) -> int:
-        """Pooled pose-only LM; the weak prior is anchored at the LAST tracked
-        pose (TrackingParams.pose_prior_eps)."""
-        m = self.map
+    def _optimize_frame_pose(self, frame: Frame, in_map: MapState | None = None) -> int:
+        """Pose-only LM; the weak prior is anchored at the LAST tracked pose
+        (TrackingParams.pose_prior_eps). Pooled (world points gathered on the
+        device by the frame's assignment) against the tracker's own map; with
+        ``in_map`` (relocalization) the points are gathered on the host."""
+        m = in_map if in_map is not None else self.map
         matched = frame.feat_mp >= 0
         lf = self.last_frame
         use_prior = (lf is not None and lf is not frame and lf.tracked
@@ -497,6 +713,21 @@ class Tracker:
                      and self._last_track_healthy())
         pR, pt = (lf.R, lf.t) if use_prior else (frame.R, frame.t)
         eps = self.p.pose_prior_eps if use_prior else 0.0
+        if in_map is not None:
+            pts = np.zeros((len(frame.feat_mp), 3), np.float32)
+            pts[matched] = m.mp_xyz[frame.feat_mp[matched]]
+            dev = frame.dev
+            res = self.pose_opt(
+                self._dev(frame.R), self._dev(frame.t), self._dev(pts), dev.xy,
+                self._dev(self.inv_sigma2[frame.octave].astype(np.float32)),
+                self._dev(matched) & dev.valid, self._dev(self.cam_params),
+                obs_ur=self._ur_dev, bf=0.0, prior_R=self._dev(np.asarray(pR, np.float32)),
+                prior_t=self._dev(np.asarray(pt, np.float32)), prior_eps=float(eps))
+            frame.R = res.R.cpu().numpy()
+            frame.t = res.t.cpu().numpy()
+            inl = res.inlier.cpu().numpy()
+            frame.feat_mp[matched & ~inl] = -1
+            return int(inl.sum())
         pose_in = np.empty(25, np.float32)
         pose_in[0:9] = frame.R.reshape(-1)
         pose_in[9:12] = frame.t
@@ -571,8 +802,19 @@ class Tracker:
         out_dev = self.fused_track(
             self._dev(pose_in), self._dev(ids_packed), mpf, mpu,
             dev.xy, dev.desc, dev.octave, dev.valid, self._ur_dev, cl=cap_l)
-        return {"frame": frame, "out": out_dev, "ids": ids_packed,
-                "n_loc": len(loc_ids), "cap_l": cap_l, "cap_c": cap_c, "map": m}
+        # start the packed result on its way to the host: a non-blocking copy
+        # into pinned memory and an event behind it. Consuming waits on that
+        # event alone, not on whatever else the device has queued.
+        ready = None
+        if out_dev.is_cuda:
+            host = torch.empty(out_dev.shape, dtype=out_dev.dtype, pin_memory=True)
+            host.copy_(out_dev, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            out_dev = host
+        return {"frame": frame, "out": out_dev, "ready": ready, "ids": ids_packed,
+                "n_loc": len(loc_ids), "cap_l": cap_l, "cap_c": cap_c, "map": m,
+                "epoch": m.remap_epoch, "wepoch": self.world_epoch}
 
     def _fused_consume(self, pend) -> bool:
         p = self.p
@@ -584,7 +826,9 @@ class Tracker:
         nc = pend["n_loc"]
         loc_ids = ids_packed[cap_l: cap_l + nc]
         N = self.orb_cfg.total_capacity
-        out = pend["out"].cpu().numpy()
+        if pend["ready"] is not None:
+            pend["ready"].synchronize()
+        out = pend["out"].numpy()
         Rn = out[0:9].view(np.float32).reshape(3, 3).copy()
         tn = out[9:12].view(np.float32).copy()
         n1 = int(out[12])
@@ -732,7 +976,9 @@ class Tracker:
             n_tr = frame.n_matched()
             c1 = frame.frame_id >= self.last_kf_frame_id + p.kf_interval_override
             c2 = (n_tr < p.ref_ratio * n_ref0) and n_tr > 15
-            return c1 or c2
+            if not (c1 or c2):
+                return False
+            return self.mapper_accepting is None or self.mapper_accepting()
         n_kfs = int(m.kf_valid[: m.n_kf].sum())
         if (frame.frame_id < self._last_reloc_frame_id + p.max_frames_between_kf
                 and n_kfs > p.max_frames_between_kf):
@@ -746,11 +992,12 @@ class Tracker:
         n_ref = max(len(ref_mps), 1)
         n_tracked = getattr(self, "n_local_inliers", frame.n_matched())
         th_ref = 0.4 if n_kfs < 2 else p.ref_ratio
-        # sync mapping: the mapper is always idle when tracking asks
+        idle = self.mapper_accepting is None or self.mapper_accepting()
         c1a = frame.frame_id >= self.last_kf_frame_id + p.max_frames_between_kf
-        c1b = frame.frame_id >= self.last_kf_frame_id + p.min_frames_between_kf
+        c1b = frame.frame_id >= self.last_kf_frame_id + p.min_frames_between_kf and idle
         c2 = (n_tracked < th_ref * n_ref) and n_tracked > 15
-        return bool((c1a or c1b) and c2)
+        # a busy mapper never gets a monocular keyframe queued on top
+        return bool((c1a or c1b) and c2 and idle)
 
     def _create_new_keyframe(self, frame: Frame):
         m = self.map

@@ -1,10 +1,10 @@
 """Native (C++) host-side kernels with lazy compilation + numpy fallback.
 
-A copy of ``orbslam3_tpu/native/__init__.py`` with one change: it compiles the
-JAX package's own ``orbslam3_tpu/native/mapops.cpp`` (read by path, not
-imported) into this package's build directory, ``orbslam3_tpu_torch/build/``,
-and binds it with ctypes. Falls back to numpy implementations when no
-compiler is present.
+The port's own copy of the JAX package's native map operations: it compiles
+``orbslam3_tpu_torch/csrc/mapops.cpp`` (kept byte-equal to the reference's
+source by a test) into this package's build directory,
+``orbslam3_tpu_torch/build/``, and binds it with ctypes. Falls back to numpy
+implementations when no compiler is present; :func:`available` says which.
 """
 from __future__ import annotations
 
@@ -17,11 +17,12 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
-_SRC = os.path.join(os.path.dirname(_PKG), "orbslam3_tpu", "native", "mapops.cpp")
+_SRC = os.path.join(_PKG, "csrc", "mapops.cpp")
 _BUILD = os.path.join(_PKG, "build")
 _SO = os.path.join(_BUILD, "libmapops.so")
 _lib = None
 _tried = False
+_error = None      # why the native library is unavailable (repr of the exception)
 
 
 def _compile():
@@ -40,7 +41,7 @@ def _compile():
 
 
 def _load():
-    global _lib, _tried
+    global _lib, _tried, _error
     if _tried:
         return _lib
     _tried = True
@@ -67,13 +68,20 @@ def _load():
             p32, pu8, p32, pf32, ctypes.c_double, i64, i64, p32, i64, i64,
             p32, p32]
         _lib = lib
-    except Exception:
+    except Exception as e:
         _lib = None
+        _error = repr(e) + (getattr(e, "stderr", b"") or b"").decode(errors="replace")[-2000:]
     return _lib
 
 
 def available() -> bool:
     return _load() is not None
+
+
+def unavailable_because() -> str | None:
+    """Why :func:`available` is False (None when the library loaded)."""
+    _load()
+    return _error
 
 
 def covisibility_row(feat_mp: np.ndarray, kf_valid: np.ndarray, kf: int,

@@ -380,12 +380,13 @@ def extract_orb(img: torch.Tensor, cfg: OrbConfig, weights: list | None = None) 
     return OrbFeatures(*(torch.cat(parts) for parts in zip(*outs)))
 
 
-def make_extractor(h: int, w: int, cfg: OrbConfig, K=None, D=None, device="cpu"):
-    """Extractor for a fixed image size on ``device``; the pyramid weights are
-    built once. With pinhole ``K`` and a non-zero radtan ``D`` the returned
-    ``xy`` is already undistorted."""
+def make_extractor(h: int, w: int, cfg: OrbConfig, K=None, D=None, device=None):
+    """Extractor for a fixed image size on ``device`` (``None``: the CUDA
+    card); the pyramid weights are built once. With pinhole ``K`` and a
+    non-zero radtan ``D`` the returned ``xy`` is already undistorted."""
+    from .. import resolve_device
     from . import camera as cam_ops
-    device = torch.device(device)
+    device = resolve_device(device)
     undist = (K is not None and D is not None
               and bool(np.any(np.abs(np.asarray(D)) > 1e-12)))
     Kc = None if K is None else torch.as_tensor(np.asarray(K, np.float32)[:4], device=device)

@@ -1,13 +1,21 @@
 """Masked windowed Hamming top-2 per row: the Hopper port of the Pallas
 ``orbslam3_tpu/ops/matching_pallas.py::match_rows``.
 
-``match_rows`` launches the CUDA kernel in ``csrc/match_rows.cu`` for CUDA
-tensors and runs :func:`match_rows_reference`, the plain PyTorch version of
-the same function, for CPU tensors. A CUDA tensor never takes the plain path:
-the kernel runs or the call raises.
+Two entry points, one CUDA source (``csrc/match_rows.cu``):
 
-The kernel builds at first use from the repository's source with ``nvcc``
-into ``orbslam3_tpu_torch/build/`` and is bound through ``ctypes``.
+- :func:`match_rows` — one radius per row → ``(idx, best, second)``;
+- :func:`match_rows_dual` — the same rows and columns at ``rad`` and at
+  ``wide * rad`` in ONE launch → two such triples, bit for bit what two
+  single-radius calls return (the tracker's motion-model retry).
+
+Each launches its kernel for CUDA tensors and runs its plain PyTorch version
+(:func:`match_rows_reference`, :func:`match_rows_dual_reference`) for CPU
+tensors. A CUDA tensor never takes the plain path: the kernel runs or the
+call raises. Each wrapper counts its launches in ``<wrapper>.launches``
+(bumped under a lock: tracker and mapper threads both match).
+
+The kernels build at first use from the repository's source with ``nvcc``
+into ``orbslam3_tpu_torch/build/`` and are bound through ``ctypes``.
 """
 from __future__ import annotations
 
@@ -31,25 +39,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lib = None
 _lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     path = os.path.join(cuda_home, "bin", "nvcc")
     return path if os.path.exists(path) else "nvcc"
 
 
-def build(verbose: bool = False) -> float:
-    """Compile the kernel into ``LIBRARY`` if it is missing or older than its
-    source; returns the seconds spent compiling (0.0 when up to date)."""
-    if (os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
+def compile_source(source: str, library: str, extra_flags=(), verbose: bool = False) -> float:
+    """nvcc ``source`` into the shared library ``library`` (atomically: a
+    concurrent process never loads half a file); returns the seconds spent."""
+    os.makedirs(os.path.dirname(library), exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(library))
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", tmp, source]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     try:
@@ -58,11 +64,32 @@ def build(verbose: bool = False) -> float:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
         if verbose and res.stderr:
             print(res.stderr.strip())
-        os.replace(tmp, LIBRARY)   # atomic: a concurrent process never loads half a file
+        os.replace(tmp, library)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return time.perf_counter() - t0
+
+
+def build(verbose: bool = False) -> float:
+    """Compile the kernels into ``LIBRARY`` if it is missing or older than
+    its source; returns the seconds spent compiling (0.0 when up to date)."""
+    if (os.path.exists(LIBRARY)
+            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
+        return 0.0
+    return compile_source(SOURCE, LIBRARY, verbose=verbose)
+
+
+def bind(library: str):
+    """Load a built library and declare its two C entry points."""
+    lib = ctypes.CDLL(library)
+    vp = ctypes.c_void_p
+    ci = ctypes.c_int
+    lib.match_rows_launch.argtypes = [vp] * 10 + [ci] * 5 + [vp]
+    lib.match_rows_launch.restype = ci
+    lib.match_rows_dual_launch.argtypes = [vp] * 10 + [ci] * 5 + [ctypes.c_float, vp]
+    lib.match_rows_dual_launch.restype = ci
+    return lib
 
 
 def _load():
@@ -70,12 +97,7 @@ def _load():
     with _lib_lock:
         if _lib is None:
             build()
-            lib = ctypes.CDLL(LIBRARY)
-            vp = ctypes.c_void_p
-            ci = ctypes.c_int
-            lib.match_rows_launch.argtypes = [vp] * 12 + [ci] * 5 + [vp]
-            lib.match_rows_launch.restype = ci
-            _lib = lib
+            _lib = bind(LIBRARY)
     return _lib
 
 
@@ -99,11 +121,60 @@ def match_rows_reference(mp_desc, uv, rad, lvl, row_ok, feat_desc, feat_xy,
     return idx.to(torch.int32), best.to(torch.int32), second.to(torch.int32)
 
 
-def _check(name, x, dtype, shape):
-    if x.dtype != dtype:
-        raise TypeError(f"match_rows: {name} must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"match_rows: {name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+def match_rows_dual_reference(mp_desc, uv, rad, lvl, row_ok, feat_desc, feat_xy,
+                              feat_oct, feat_ok, octave_lo: int = 1, octave_hi: int = 1,
+                              wide: float = 2.0):
+    """Plain PyTorch version of the dual form: two plain calls, at ``rad``
+    and at ``wide * rad`` (one float32 product, as the kernel forms it)."""
+    args = (feat_desc, feat_xy, feat_oct, feat_ok, octave_lo, octave_hi)
+    return (match_rows_reference(mp_desc, uv, rad, lvl, row_ok, *args),
+            match_rows_reference(mp_desc, uv, wide * rad, lvl, row_ok, *args))
+
+
+# (name, dtype, trailing shape, pointer alignment the kernel needs)
+_ROW_ARGS = (("mp_desc", torch.int32, (8,), 16), ("uv", torch.float32, (2,), 8),
+             ("rad", torch.float32, (), 4), ("lvl", torch.int32, (), 4),
+             ("row_ok", torch.bool, (), 1))
+_COL_ARGS = (("feat_desc", torch.int32, (8,), 16), ("feat_xy", torch.float32, (2,), 8),
+             ("feat_oct", torch.int32, (), 4), ("feat_ok", torch.bool, (), 1))
+
+
+def _prepare(fn, tensors):
+    """Check device, type and shape of the nine inputs and return them as
+    kernel-ready tensors (a copy only where one is not contiguous or not
+    aligned) with (lead, T, M, N)."""
+    mp_desc, feat_desc = tensors[0], tensors[5]
+    if mp_desc.device.type != "cuda":
+        raise RuntimeError(f"{fn}: no kernel for device {mp_desc.device}")
+    if mp_desc.dim() not in (2, 3) or feat_desc.dim() != mp_desc.dim():
+        raise ValueError(f"{fn}: mp_desc/feat_desc must be (M,8)/(N,8) or (T,M,8)/(T,N,8)")
+    lead = tuple(mp_desc.shape[:-2])
+    M, N = mp_desc.shape[-2], feat_desc.shape[-2]
+    if N < 1:
+        raise ValueError(f"{fn}: needs at least one feature column")
+    ins = []
+    for (name, dtype, trail, align), x, n in zip(
+            _ROW_ARGS + _COL_ARGS, tensors, (M,) * 5 + (N,) * 4):
+        if x.dtype != dtype:
+            raise TypeError(f"{fn}: {name} must be {dtype}, got {x.dtype}")
+        if tuple(x.shape) != lead + (n,) + trail:
+            raise ValueError(f"{fn}: {name} has shape {tuple(x.shape)}, "
+                             f"expected {lead + (n,) + trail}")
+        if x.device != mp_desc.device:
+            raise ValueError(f"{fn}: {name} is on {x.device}, not {mp_desc.device}")
+        if not x.is_contiguous():
+            x = x.contiguous()
+        if x.data_ptr() % align:
+            x = x.clone()
+        ins.append(x)
+    return ins, lead, (lead[0] if lead else 1), M, N
+
+
+def _launched(fn, err: int):
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__}: kernel launch failed (cudaError {err})")
+    with _count_lock:
+        fn.launches += 1
 
 
 def match_rows(mp_desc, uv, rad, lvl, row_ok, feat_desc, feat_xy, feat_oct,
@@ -114,44 +185,40 @@ def match_rows(mp_desc, uv, rad, lvl, row_ok, feat_desc, feat_xy, feat_oct,
     row_ok (…,M) bool; feat_desc (…,N,8) int32, feat_xy (…,N,2) f32,
     feat_oct (…,N) int32, feat_ok (…,N) bool; "…" is an optional batch
     dimension T shared by all arguments.
-    Returns idx, best, second, each (…,M) int32 (BIG where no candidate).
+    Returns idx, best, second, each (…,M) int32 (BIG where no candidate),
+    views of one (3,…,M) buffer.
     """
+    tensors = (mp_desc, uv, rad, lvl, row_ok, feat_desc, feat_xy, feat_oct, feat_ok)
     if mp_desc.device.type == "cpu":
-        return match_rows_reference(mp_desc, uv, rad, lvl, row_ok, feat_desc,
-                                    feat_xy, feat_oct, feat_ok, octave_lo, octave_hi)
-    if mp_desc.device.type != "cuda":
-        raise RuntimeError(f"match_rows: no kernel for device {mp_desc.device}")
-    batched = mp_desc.dim() == 3
-    lead = tuple(mp_desc.shape[:-2])
-    T = mp_desc.shape[0] if batched else 1
-    M, N = mp_desc.shape[-2], feat_desc.shape[-2]
-    args = [("mp_desc", mp_desc, torch.int32, lead + (M, 8)),
-            ("uv", uv, torch.float32, lead + (M, 2)),
-            ("rad", rad, torch.float32, lead + (M,)),
-            ("lvl", lvl, torch.int32, lead + (M,)),
-            ("row_ok", row_ok, torch.bool, lead + (M,)),
-            ("feat_desc", feat_desc, torch.int32, lead + (N, 8)),
-            ("feat_xy", feat_xy, torch.float32, lead + (N, 2)),
-            ("feat_oct", feat_oct, torch.int32, lead + (N,)),
-            ("feat_ok", feat_ok, torch.bool, lead + (N,))]
-    ins = []
-    for name, x, dtype, shape in args:
-        _check(name, x, dtype, shape)
-        if x.device != mp_desc.device:
-            raise ValueError(f"match_rows: {name} is on {x.device}, not {mp_desc.device}")
-        ins.append(x.contiguous())
-    if N < 1:
-        raise ValueError("match_rows: needs at least one feature column")
-    outs = [torch.empty(lead + (M,), dtype=torch.int32, device=mp_desc.device)
-            for _ in range(3)]
-    lib = _load()
+        return match_rows_reference(*tensors, octave_lo, octave_hi)
+    ins, lead, T, M, N = _prepare("match_rows", tensors)
+    out = torch.empty((3,) + lead + (M,), dtype=torch.int32, device=mp_desc.device)
     stream = torch.cuda.current_stream(mp_desc.device).cuda_stream
-    err = lib.match_rows_launch(*[t.data_ptr() for t in ins + outs],
-                                T, M, N, int(octave_lo), int(octave_hi), stream)
-    if err != 0:
-        raise RuntimeError(f"match_rows: kernel launch failed (cudaError {err})")
-    match_rows.launches += 1
-    return outs[0], outs[1], outs[2]
+    err = _load().match_rows_launch(*[t.data_ptr() for t in ins], out.data_ptr(),
+                                    T, M, N, int(octave_lo), int(octave_hi), stream)
+    _launched(match_rows, err)
+    return tuple(out.unbind(0))
+
+
+def match_rows_dual(mp_desc, uv, rad, lvl, row_ok, feat_desc, feat_xy, feat_oct,
+                    feat_ok, octave_lo: int = 1, octave_hi: int = 1, wide: float = 2.0):
+    """:func:`match_rows` at the radii ``rad`` and ``wide * rad`` in one
+    launch. Returns ``((idx, best, second), (idx_w, best_w, second_w))``,
+    views of one (2,3,…,M) buffer; each triple equals, bit for bit, a
+    single-radius call at that radius."""
+    tensors = (mp_desc, uv, rad, lvl, row_ok, feat_desc, feat_xy, feat_oct, feat_ok)
+    if mp_desc.device.type == "cpu":
+        return match_rows_dual_reference(*tensors, octave_lo, octave_hi, wide)
+    ins, lead, T, M, N = _prepare("match_rows_dual", tensors)
+    out = torch.empty((2, 3) + lead + (M,), dtype=torch.int32, device=mp_desc.device)
+    stream = torch.cuda.current_stream(mp_desc.device).cuda_stream
+    err = _load().match_rows_dual_launch(*[t.data_ptr() for t in ins], out.data_ptr(),
+                                         T, M, N, int(octave_lo), int(octave_hi),
+                                         float(wide), stream)
+    _launched(match_rows_dual, err)
+    narrow, wider = out.unbind(0)
+    return tuple(narrow.unbind(0)), tuple(wider.unbind(0))
 
 
 match_rows.launches = 0
+match_rows_dual.launches = 0

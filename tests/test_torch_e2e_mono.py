@@ -48,7 +48,7 @@ def runs():
                    tracking_params=jparams, enable_loop_closing=False)
     tsys = SlamSystem(scene.K, None, (scene.w, scene.h), n_features=512, seed=0,
                       tracking_params=config_from(jparams, TrackingParams),
-                      enable_loop_closing=False, mapping_mode="sync")
+                      enable_loop_closing=False, mapping_mode="sync", device="cpu")
     out = {}
     for name, s in (("jax", jsys), ("torch", tsys)):
         states, ts, t_wc, lost = _run(s, imgs)
@@ -98,13 +98,13 @@ def test_trajectory_export_tum_format(runs, tmp_path):
     assert abs(np.linalg.norm(row[4:]) - 1.0) < 1e-4
 
 
-@pytest.mark.parametrize("kw", [dict(enable_loop_closing=True), dict(mapping_mode="async"),
+@pytest.mark.parametrize("kw", [dict(enable_loop_closing=True), dict(th_depth=35.0),
                                 dict(bf=40.0), dict(cam_type=1), dict(use_viewer=True),
-                                dict(tracking_params=TrackingParams(pipeline=True))])
+                                dict(tracking_params=TrackingParams(pose_starts=2))])
 def test_unported_options_raise(kw):
-    """Options outside the slice name their ROADMAP item instead of passing
-    silently."""
-    base = dict(enable_loop_closing=False)
+    """Options outside the port so far name their ROADMAP item instead of
+    passing silently."""
+    base = dict(enable_loop_closing=False, device="cpu")
     base.update(kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SlamSystem(np.array([458.0, 457.0, 376.0, 240.0], np.float32), None, (752, 480),

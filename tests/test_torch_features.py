@@ -114,6 +114,6 @@ def test_extractor_undistorts_keypoints(image):
     K = np.array([458.654, 457.296, 376.0, 240.0], np.float32)
     D = np.array([-0.283, 0.0739, 0.0002, 1.76e-05, 0.0], np.float32)
     fj = jf.make_extractor(480, 752, CFG, K=K, D=D)(J(image))
-    ft = tf.make_extractor(480, 752, TCFG, K=K, D=D)(T(image))
+    ft = tf.make_extractor(480, 752, TCFG, K=K, D=D, device="cpu")(T(image))
     lvl0 = N(fj.octave) == 0
     np.testing.assert_allclose(N(ft.xy)[lvl0], N(fj.xy)[lvl0], rtol=0, atol=1e-3)

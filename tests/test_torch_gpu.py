@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA kernel on the card: ``match_rows`` against its
-plain PyTorch version on the same CUDA tensors. Marked ``gpu``; without a
+"""The port's hand-written CUDA kernels on the card: ``match_rows`` and
+``match_rows_dual`` against their plain PyTorch versions on the same CUDA
+tensors. Marked ``gpu``; without a
 CUDA device every test skips (the kernel has no CPU mode).
 
 This file imports neither JAX nor the test helpers, so it also runs on a
@@ -67,6 +68,39 @@ def test_kernel_equals_plain(cuda, M, N, lead):
     assert (best >= mr.BIG).any() and ((second == best) & (best < mr.BIG)).any()
 
 
+@pytest.mark.parametrize("M,N,lead", [(4096, 1024, ()), (1024, 1024, ()), (1024, 1000, ()),
+                                      (300, 200, ()), (512, 300, (4,))])
+def test_dual_kernel_equals_plain(cuda, M, N, lead):
+    """One launch returns what two plain calls return at ``rad`` and at
+    ``2 * rad``, bit for bit."""
+    args = [a.to(cuda) for a in _inputs(13, M, N, lead)]
+    before = mr.match_rows_dual.launches, mr.match_rows.launches
+    got = mr.match_rows_dual(*args, wide=2.0)
+    torch.cuda.synchronize()
+    assert (mr.match_rows_dual.launches, mr.match_rows.launches) == (before[0] + 1, before[1])
+    want = mr.match_rows_dual_reference(*args, wide=2.0)
+    for g3, w3 in zip(got, want):
+        for g, w in zip(g3, w3):
+            assert torch.equal(g, w)
+    assert (want[1][1] < want[0][1]).any(), "the wide window must add candidates somewhere"
+
+
+def test_kernel_takes_views_without_copies_and_unaligned_ones_with(cuda):
+    """Strided or misaligned inputs are made kernel-ready by the wrapper and
+    give the same result as their contiguous copies."""
+    args = [a.to(cuda) for a in _inputs(5, 257, 129)]
+    want = mr.match_rows(*args)
+    odd = list(args)
+    flat = torch.cat([args[0].new_zeros(1), args[0].reshape(-1)])
+    odd[0] = flat[1:].view(args[0].shape)                                  # 4 bytes off 16
+    assert odd[0].data_ptr() % 16 == 4 and odd[0].is_contiguous()
+    odd[5] = torch.stack([args[5], args[5]], dim=1)[:, 0]                  # strided
+    got = mr.match_rows(*odd)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     args = [a.to(cuda) for a in _inputs(1, 64, 32)]
     bad = list(args)
@@ -77,3 +111,5 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     bad[6] = bad[6][:-1]
     with pytest.raises(ValueError):
         mr.match_rows(*bad)
+    with pytest.raises(ValueError):
+        mr.match_rows_dual(*bad)

@@ -1,6 +1,9 @@
 """The port runs where JAX is absent: importing every module of
 orbslam3_tpu_torch and extracting one frame must never import ``jax`` or the
-JAX package ``orbslam3_tpu`` (the machine with the GPU has no JAX)."""
+JAX package ``orbslam3_tpu`` (the machine with the GPU has no JAX), and no
+file of the port or of chip_smoke.py reads a file of that package: what the
+port shares with it (``csrc/mapops.cpp``) is a copy, held byte-equal here."""
+import ast
 import os
 import re
 import subprocess
@@ -58,3 +61,65 @@ def test_no_import_line_names_jax():
                 with open(path) as fh:
                     bad += [f"{path}:{i}" for i, line in enumerate(fh, 1) if pat.match(line)]
     assert not bad, bad
+
+
+def _port_sources():
+    yield os.path.join(REPO, "chip_smoke.py")
+    for root, _, files in os.walk(os.path.join(REPO, "orbslam3_tpu_torch")):
+        for fn in files:
+            if fn.endswith(".py"):
+                yield os.path.join(root, fn)
+
+
+def _strings_outside_docstrings(tree):
+    """Every string constant of a module except its docstrings (prose may
+    name the reference's files; code may not build a path to them)."""
+    doc = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(
+                    getattr(body[0], "value", None), ast.Constant):
+                doc.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in doc):
+            yield node
+
+
+def test_no_string_resolves_into_the_jax_package():
+    """No string in the port's code is the JAX package's directory name (a
+    component to join a path from) or names a file or directory that exists
+    under ``orbslam3_tpu/`` when joined to the repository root, the port's
+    directory or the file's own. (The kernels' ``replaces`` notes carry a
+    ``file:line`` and name no file.)"""
+    ref = os.path.realpath(os.path.join(REPO, "orbslam3_tpu"))
+    bad, n_strings = [], 0
+    for path in _port_sources():
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        for node in _strings_outside_docstrings(tree):
+            n_strings += 1
+            hit = node.value.strip("/\\") == "orbslam3_tpu"
+            for base in (REPO, os.path.dirname(path), os.path.join(REPO, "orbslam3_tpu_torch")):
+                if hit or "\0" in node.value or len(node.value) > 512:
+                    break
+                full = os.path.realpath(os.path.join(base, node.value))
+                hit = (full + os.sep).startswith(ref + os.sep) and os.path.exists(full)
+            if hit:
+                bad.append(f"{path}:{node.lineno}: {node.value!r}")
+    assert n_strings > 500, "the walk must have seen the port's strings"
+    assert not bad, bad
+
+
+def test_mapops_source_is_the_ports_own_copy():
+    """The native map operations build from the port's own source, and that
+    copy has not drifted from the reference's."""
+    from orbslam3_tpu_torch import native
+    own = os.path.join(REPO, "orbslam3_tpu_torch", "csrc", "mapops.cpp")
+    assert os.path.realpath(native._SRC) == os.path.realpath(own)
+    assert os.path.realpath(native._SO).startswith(
+        os.path.realpath(os.path.join(REPO, "orbslam3_tpu_torch", "build")) + os.sep)
+    with open(own, "rb") as a, open(os.path.join(REPO, "orbslam3_tpu", "native",
+                                                  "mapops.cpp"), "rb") as b:
+        assert a.read() == b.read()

@@ -119,7 +119,7 @@ def test_fused_track_pooled(shared):
     want = np.asarray(jk.fused_track_pooled(*args)(
         J(pose), J(ids), mpf_j, mpu_j, *_feats(f, False), J(ur), cl=cl))
     mpf_t, mpu_t = tdm.DeviceMapMirror("cpu").sync(mport)
-    got = N(tk.fused_track_pooled(*args)(
+    got = N(tk.fused_track_pooled(*args, device="cpu")(
         T(pose), T(ids), mpf_t, mpu_t, *_feats(f, True), T(ur), cl=cl))
     assert got.dtype == np.int32 and got.shape == want.shape
     _check_pose_words(got, want)
@@ -135,7 +135,7 @@ def test_projection_assign_pooled(shared):
     args = (0, 8, 1.2, K, WH, 3.0, 0.8, 100, 0.5)
     want = np.asarray(jk.projection_assign_pooled(*args)(
         J(pose), J(ids), *jdm.DeviceMapMirror().sync(mref), *_feats(f, False)))
-    got = N(tk.projection_assign_pooled(*args)(
+    got = N(tk.projection_assign_pooled(*args, device="cpu")(
         T(pose), T(ids), *tdm.DeviceMapMirror("cpu").sync(mport), *_feats(f, True)))
     np.testing.assert_array_equal(got, want)
     ok = tk.unpack_bits_host(want[len(ids): len(ids) + (len(ids) + 31) // 32], len(ids))
@@ -154,7 +154,7 @@ def test_projection_matcher(shared):
     want = jk.projection_matcher(0, 8, 1.2)(*map(J, geo), *_feats(f, False), *map(J, tail),
                                             J(np.float32(8.0)), J(np.float32(0.9)),
                                             J(np.int32(100)), J(np.float32(0.5)))
-    got = tk.projection_matcher(0, 8, 1.2)(*map(T, geo), *_feats(f, True), *map(T, tail),
+    got = tk.projection_matcher(0, 8, 1.2, device="cpu")(*map(T, geo), *_feats(f, True), *map(T, tail),
                                            8.0, 0.9, 100, 0.5)
     for name, g, w in zip(("idx", "ok", "uv", "lvl", "frustum"), got, want):
         if name == "uv":
@@ -175,7 +175,7 @@ def test_triangulation_matcher(shared):
     sig = 1.0 / K[0]
     want = jk.triangulation_matcher(0, 8, 1.2)(*map(J, geo + tuple(feats)), J(np.float32(0.9)),
                                                J(np.int32(50)), J(np.float32(sig)))
-    got = tk.triangulation_matcher(0, 8, 1.2)(*map(T, geo + tuple(feats)), 0.9, 50, sig)
+    got = tk.triangulation_matcher(0, 8, 1.2, device="cpu")(*map(T, geo + tuple(feats)), 0.9, 50, sig)
     ok_j, ok_t = N(want[1]), N(got[1])
     assert ok_j.sum() > 50, "the pair must triangulate"
     np.testing.assert_array_equal(N(got[0]), N(want[0]))
@@ -218,7 +218,7 @@ def test_pose_opt_pooled(shared):
     want = np.asarray(jk.pose_opt_pooled(*args)(
         J(pose), J(feat_mp), jdm.DeviceMapMirror().sync(mref)[0],
         J(f["xy"]), J(f["octave"]), J(f["valid"]), J(ur)))
-    got = N(tk.pose_opt_pooled(*args)(
+    got = N(tk.pose_opt_pooled(*args, device="cpu")(
         T(pose), T(feat_mp), tdm.DeviceMapMirror("cpu").sync(mport)[0],
         T(f["xy"]), T(f["octave"]), T(f["valid"]), T(ur)))
     _check_pose_words(got, want)
@@ -251,7 +251,7 @@ def test_triangulation_batched(shared):
     want = np.asarray(jk.triangulation_batched(*args, **kw)(
         J(pose1), pj[0][2], pj[1][2], pj[2][2], J(un1), J(nb), J(nb >= 0), J(poses2),
         J(un2), *pj))
-    got = N(tk.triangulation_batched(*args, **kw)(
+    got = N(tk.triangulation_batched(*args, device="cpu", **kw)(
         T(pose1), pt[0][2], pt[1][2], pt[2][2], T(un1), T(nb), T(nb >= 0), T(poses2),
         T(un2), *pt))
     n = int(want[0])
@@ -283,7 +283,7 @@ def test_fuse_batched(shared):
     want = np.asarray(jk.fuse_batched(*args, cap_cand=C)(
         J(tgt), J(poses), J(fvalid), J(cand), *jdm.DeviceMapMirror().sync(mref),
         *jdm.DeviceKfPool().sync(mref, [0, 1, 2])))
-    got = N(tk.fuse_batched(*args, cap_cand=C)(
+    got = N(tk.fuse_batched(*args, cap_cand=C, device="cpu")(
         T(tgt), T(poses), T(fvalid), T(cand), *tdm.DeviceMapMirror("cpu").sync(mport),
         *tdm.DeviceKfPool("cpu").sync(mport, [0, 1, 2])))
     assert int(want[0]) > 100
