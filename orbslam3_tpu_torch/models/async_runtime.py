@@ -1,30 +1,38 @@
-"""Asynchronous SLAM runtime: the local-mapping thread.
+"""Asynchronous SLAM runtime: the mapper and loop-closing threads, and the
+background global BA.
 
-Port of the mapper half of ``orbslam3_tpu/models/async_runtime.py`` (the
-reference's thread architecture): tracking runs in the caller's thread and
-never blocks on BA; it hands new keyframes to the mapper through a small
-queue with the reference's back-pressure rules (the queue<3 gate and the
-stop request). The mapper thread pops keyframes and runs the mapping round
-(triangulation, fuse, local BA, culling). The loop-closing thread and the
-background global BA are not ported yet (ROADMAP.md, Queue 1 item 3);
-``request_stop``/``release`` are the pause they will use.
+Port of ``orbslam3_tpu/models/async_runtime.py`` (the reference's thread
+architecture):
+
+- Tracking runs in the caller's thread and never blocks on BA; it hands new
+  keyframes to the mapper through a small queue with the reference's
+  back-pressure rules (the queue<3 gate and the stop request).
+- The mapper thread pops keyframes, runs the mapping round (triangulation,
+  fuse, local BA, culling) and pushes each processed keyframe, under its
+  possibly remapped id, to the loop-closing thread.
+- The loop-closing thread runs place recognition, verification, correction
+  and merge detection (``LoopCloser.process_keyframe``). A correction pauses
+  the mapper (``request_stop`` / ``release``) and kills a running global BA
+  first; after it a ``BackgroundGBA`` thread runs the global BA with the
+  reference's abort checks and propagates its result to keyframes made
+  meanwhile.
 
 Cross-thread map consistency is the per-map ``MapState.lock``: tracking holds
-it through the Track() core, the mapper while it gathers and writes back.
-Device compute runs outside the lock on gathered snapshots.
+it through the Track() core, the mapper while it gathers and writes back,
+the loop closer during verification and correction. Device compute runs
+outside the lock on gathered snapshots.
 
-Two host threads, one device. On a CUDA device the mapper thread always
-enqueues on a stream of its own: the tracker's read-back event then sits
-behind the tracker's work only, never behind a bundle adjustment the mapper
-has queued. (While the frame is bound by the host's launch rate the device
-queue is short and the stream changes no measured time, PERF.md section 6; it
-is what keeps tracking independent of mapping once the launches get fewer.)
-The two streams share no buffer: the device mirrors of the map are per stream
+Host threads, one device. On a CUDA device each of the mapper, loop-closing
+and global-BA threads enqueues on a stream of its own: the tracker's
+read-back event then sits behind the tracker's work only. The streams share
+no buffer: the device mirrors of the map are per stream
 (``models/device_map.py``), every other tensor is made and used by one
-thread, and the host map is the only hand-off.
+thread (constants, such as the vocabulary's, are settled on upload), and the
+host map is the only hand-off.
 
-Abort protocol: while newer keyframes wait, or a stop is requested, a mapper
-round skips local BA and keyframe culling (``abort_requested``).
+An exception in a thread's round is counted and kept, never hidden, and the
+thread goes on: ``mapper_errors`` and ``gba_errors`` in the mapper's stats,
+``lc_errors`` in the loop closer's (``SlamSystem.stats()`` carries all).
 """
 from __future__ import annotations
 
@@ -70,22 +78,37 @@ class _KFQueue:
         return len(self._q)
 
 
+def _error(stats: dict, key: str, e: Exception):
+    stats[f"{key}s"] = stats.get(f"{key}s", 0) + 1
+    stats[f"last_{key}"] = f"{e!r}\n{traceback.format_exc(limit=6)}"
+
+
 class AsyncRuntime:
-    """Owns the mapper thread of a SlamSystem."""
+    """Owns the mapper and loop-closing threads of a SlamSystem and its
+    background global BA."""
 
     def __init__(self, system):
         self.system = system
         self.kf_queue = _KFQueue()       # tracking → mapper
+        self.loop_queue = _KFQueue()     # mapper → loop closing
         self._finish = threading.Event()
         self._stop_requested = threading.Event()   # pause the mapper
         self._stopped = threading.Event()
-        self._idle = threading.Event()
+        self._idle = threading.Event()             # the mapper
         self._idle.set()
+        self._loop_idle = threading.Event()
+        self._loop_idle.set()
+        self.gba: BackgroundGBA | None = None
         device = system.device
-        self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self._cuda = device if device.type == "cuda" else None
+        self._stream = torch.cuda.Stream(device) if self._cuda else None
+        self._loop_stream = torch.cuda.Stream(device) if self._cuda else None
         self._mapper_thread = threading.Thread(
             target=self._mapper_run, name="local-mapping", daemon=True)
+        self._loop_thread = threading.Thread(
+            target=self._loop_run, name="loop-closing", daemon=True)
         self._mapper_thread.start()
+        self._loop_thread.start()
 
     # -- tracking-side API ------------------------------------------------
     def insert_keyframe(self, kf_id: int, initial: bool):
@@ -98,18 +121,18 @@ class AsyncRuntime:
 
     def on_map_remap(self, m, kf_remap):
         """Map pools compacted (mapper thread, under the map lock): rewrite
-        queued keyframe ids for that map; drop culled ones."""
-        q = self.kf_queue
-        with q._cv:
-            items = list(q._q)
-            q._q.clear()
-            for item in items:
-                if item[0] is m:
-                    nid = int(kf_remap[item[1]])
-                    if nid < 0:
-                        continue
-                    item = (m, nid) + tuple(item[2:])
-                q._q.append(item)
+        queued keyframe ids for that map in both queues; drop culled ones."""
+        for q in (self.kf_queue, self.loop_queue):
+            with q._cv:
+                items = list(q._q)
+                q._q.clear()
+                for item in items:
+                    if item[0] is m:
+                        nid = int(kf_remap[item[1]])
+                        if nid < 0:
+                            continue
+                        item = (m, nid) + tuple(item[2:])
+                    q._q.append(item)
 
     def abort_requested(self) -> bool:
         """Local BA is skipped when newer keyframes are waiting (the
@@ -129,21 +152,41 @@ class AsyncRuntime:
         self._stop_requested.clear()
 
     # -- lifecycle ---------------------------------------------------------
+    def _gba_running(self) -> bool:
+        g = self.gba
+        return g is not None and g.running
+
     def wait_idle(self, timeout: float = 120.0) -> bool:
-        """Wait until the queue is drained and the mapper is idle."""
+        """Wait until both queues are drained, both threads idle and no global
+        BA runs. Each stage hands its work on before it marks itself idle, so
+        checking them in pipeline order cannot miss work in flight."""
         t0 = time.monotonic()
         while time.monotonic() - t0 < timeout:
-            if self.kf_queue.empty_and(self._idle):
+            if (self.kf_queue.empty_and(self._idle)
+                    and self.loop_queue.empty_and(self._loop_idle)
+                    and not self._gba_running()):
                 return True
             time.sleep(0.005)
         return False
 
     def shutdown(self, timeout: float = 120.0):
+        """Drain, then join the global-BA, mapper and loop-closing threads."""
         self.wait_idle(timeout)
+        if self.gba is not None:
+            self.gba.abort()
+            self.gba.join(timeout)
         self._finish.set()
         self._mapper_thread.join(timeout)
+        self._loop_thread.join(timeout)
 
-    # -- the thread ----------------------------------------------------------
+    def threads_alive(self) -> list[str]:
+        """Names of this runtime's threads still running."""
+        ths = [self._mapper_thread, self._loop_thread]
+        if self.gba is not None:
+            ths.append(self.gba._thread)
+        return [t.name for t in ths if t.is_alive()]
+
+    # -- threads -------------------------------------------------------------
     def _mapper_run(self):
         with torch.cuda.stream(self._stream):        # no stream (the CPU): a no-op
             while not self._finish.is_set():
@@ -163,12 +206,96 @@ class AsyncRuntime:
                 sysm = self.system
                 if m is sysm.map:           # else: stale entry of a replaced map
                     try:
-                        sysm.mapper.process_keyframe(
+                        kf_id = sysm.mapper.process_keyframe(
                             kf_id, initial=initial, abort_check=self.abort_requested)
+                        if not initial:
+                            self.loop_queue.push((m, kf_id))
                     except Exception as e:  # the pipeline outlives a failed round
-                        stats = sysm.mapper.stats
-                        stats["mapper_errors"] = stats.get("mapper_errors", 0) + 1
-                        stats["last_mapper_error"] = (
-                            f"{e!r}\n{traceback.format_exc(limit=6)}")
+                        _error(sysm.mapper.stats, "mapper_error", e)
                 if len(self.kf_queue) == 0:
                     self._idle.set()
+
+    def _loop_run(self):
+        with torch.cuda.stream(self._loop_stream):
+            while not self._finish.is_set():
+                item = self.loop_queue.pop(timeout=0.05, on_take=self._loop_idle.clear)
+                if item is None:
+                    self._loop_idle.set()
+                    continue
+                m, kf_id = item
+                sysm = self.system
+                lc = getattr(sysm, "loop_closer", None)
+                try:
+                    if m is sysm.map and lc is not None:
+                        if lc.process_keyframe(kf_id, pre_correct=self._pre_correct,
+                                               post_correct=self.release):
+                            self._start_gba()
+                except Exception as e:
+                    _error(lc.stats, "lc_error", e)
+                finally:
+                    # an exception between pre_correct and post_correct must
+                    # not leave the mapper paused (release() is idempotent)
+                    self.release()
+                    if len(self.loop_queue) == 0:
+                        self._loop_idle.set()
+
+    def _pre_correct(self):
+        """Before a loop correction: kill a running global BA and pause the
+        mapper (the reference's CorrectLoop step 1)."""
+        if self.gba is not None:
+            self.gba.abort()
+            self.gba.join()
+            self.gba = None
+        self.request_stop()
+
+    def _start_gba(self):
+        if self.gba is not None and self.gba.running:
+            self.gba.abort()
+            self.gba.join()
+        self.gba = BackgroundGBA(self.system, stream=(
+            torch.cuda.Stream(self._cuda) if self._cuda else None))
+        self.gba.start()
+
+
+class BackgroundGBA:
+    """Abortable global BA concurrent with tracking and mapping (the
+    reference's transient GBA thread), with the propagation of its result to
+    keyframes and points created during the run. An aborted run writes
+    nothing back."""
+
+    def __init__(self, system, iters: int = 10, stream=None):
+        self.system = system
+        self.map = system.map
+        self.iters = iters
+        self._stream = stream
+        self._abort = threading.Event()
+        self.running = False
+        self.applied = None              # True / False once the run ended
+        self._thread = threading.Thread(target=self._run, name="global-ba", daemon=True)
+
+    def start(self):
+        self.running = True
+        self._thread.start()
+
+    def abort(self):
+        self._abort.set()
+
+    def join(self, timeout: float = 300.0):
+        self._thread.join(timeout)
+
+    def _run(self):
+        mapper = self.system.mapper
+        try:
+            with torch.cuda.stream(self._stream):
+                if getattr(self.system.tracker, "imu_initialized", False):
+                    raise NotImplementedError(
+                        "the inertial global BA (FullInertialBA) is not ported to "
+                        "orbslam3_tpu_torch yet (ROADMAP.md, Queue 1: visual-inertial)")
+                self.applied = mapper.global_ba(iters=(4, self.iters),
+                                                abort_check=self._abort.is_set,
+                                                propagate=True)
+        except Exception as e:
+            self.applied = False
+            _error(mapper.stats, "gba_error", e)
+        finally:
+            self.running = False

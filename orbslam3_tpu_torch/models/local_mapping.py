@@ -11,8 +11,11 @@ behind a mapper round trip; ``abort_check`` skips local BA and keyframe
 culling while newer keyframes wait. Local BA is one call per phase in both
 modes: the reference's ``ba_chunk`` splits one compiled dispatch so that
 tracking kernels can interleave, and eager PyTorch already launches every
-operator by itself. The sharded, inertial and global-BA branches are not
-ported (ROADMAP.md).
+operator by itself. Global BA (``global_ba``, after a loop correction) keeps
+the reference's schedule: phase 1, then chunks of 2 LM iterations with an
+abort check between them. ``_fuse_into`` is the loop closer's SearchAndFuse
+and the merge's weld. The sharded and inertial branches are not ported
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -46,7 +49,11 @@ class LocalMapper:
         self.tracker = None
         self.kf_cull_redundancy = 0.9
         self.timer = StageTimer()
+        # fn(R_rel, t_rel) after a propagated global BA, under the map lock:
+        # the system shifts the tracker's live frame by the anchor correction
+        self.on_poses_corrected = None
         self._K_dev = torch.as_tensor(self.K, device=self.device)
+        self._fuse_match = None
         map_state.on_remap["mapper"] = self._on_map_remap
 
     def _on_map_remap(self, kf_remap: np.ndarray, mp_remap: np.ndarray):
@@ -334,6 +341,66 @@ class LocalMapper:
         if rep_old:
             m.replace_map_points(np.asarray(rep_old, np.int64), np.asarray(rep_new, np.int64))
 
+    def _fuse_into(self, mp_ids: np.ndarray, target_kf: int, cap: int):
+        """Project ``mp_ids`` into one keyframe and fuse (the reference's
+        ORBmatcher::Fuse at radius 3, TH_LOW, no ratio test): one
+        ``match_rows`` launch over ``cap`` rows; a match claims the feature
+        or merges with its point (the more observed one survives). Runs under
+        the map lock (the loop correction's and the merge's)."""
+        m = self.map
+        if self._fuse_match is None:
+            self._fuse_match = kernels.projection_matcher(
+                self.cam_type, self.orb_cfg.n_levels, self.orb_cfg.scale, device=self.device)
+        mp_ids = mp_ids[m.mp_valid[mp_ids]][:cap]
+        if len(mp_ids) == 0:
+            return
+        n = len(mp_ids)
+        pad = cap - n
+
+        def pk(a, fill=0.0):
+            out = a[mp_ids]
+            if pad:
+                out = np.concatenate([out, np.full((pad,) + out.shape[1:], fill, out.dtype)])
+            return self._dev(out.view(np.int32) if out.dtype == np.uint32 else out)
+
+        valid = np.zeros(cap, bool)
+        valid[:n] = True
+        idx, ok, _, _, _ = self._fuse_match(
+            pk(m.mp_xyz), pk(m.mp_desc), pk(m.mp_normal), pk(m.mp_min_dist),
+            pk(m.mp_max_dist, 1.0), self._dev(valid),
+            self._dev(m.kf_R[target_kf]), self._dev(m.kf_t[target_kf]), self._K_dev,
+            self._dev(m.kf_feat_xy[target_kf]),
+            self._dev(m.kf_feat_desc[target_kf].view(np.int32)),
+            self._dev(m.kf_feat_octave[target_kf]), self._dev(m.kf_feat_valid[target_kf]),
+            self._dev(self.wh),
+            3.0,      # fuse radius 3·scale (the reference's Fuse th=3)
+            1.0,      # no ratio test in Fuse
+            50,       # TH_LOW
+            0.5)
+        okn = ok.cpu().numpy()[:n]
+        idxn = idx.cpu().numpy()[:n]
+        src = np.nonzero(okn)[0]
+        if len(src) == 0:
+            return
+        mp_src = mp_ids[src]
+        feat_tgt = idxn[src]
+        cur = m.kf_feat_mp[target_kf, feat_tgt]
+        obs_cnt = m.obs_count()
+        for mp, ft, existing in zip(mp_src, feat_tgt, cur):
+            if existing == mp:
+                continue
+            if existing < 0:
+                m.kf_feat_mp[target_kf, ft] = mp
+            else:
+                if not m.mp_valid[existing]:
+                    m.kf_feat_mp[target_kf, ft] = mp
+                    continue
+                # merge: keep the more-observed point (MapPoint::Replace)
+                if obs_cnt[mp] >= obs_cnt[existing]:
+                    m.replace_map_points(np.asarray([existing]), np.asarray([mp]))
+                else:
+                    m.replace_map_points(np.asarray([mp]), np.asarray([existing]))
+
     # ------------------------------------------------------------------
     def cull_keyframes(self, kf_id: int, redundancy: float | None = None,
                        max_cull_per_run: int = 20):
@@ -490,6 +557,153 @@ class LocalMapper:
             bf=0.0,
         )
         return prob, all_kfs, fixed_mask, pts, o_src_kf, o_src_feat, len(o_kf)
+
+    # ------------------------------------------------------------------
+    def global_ba(self, iters: tuple[int, int] = (4, 6), abort_check=None,
+                  propagate: bool = False) -> bool:
+        """Full-map BA (the reference's GlobalBundleAdjustemnt after a loop
+        closure). The reference's schedule: phase 1 of ``iters[0]`` LM
+        iterations with the outlier classification, then ``iters[1]``
+        iterations in chunks of 2, each chunk a fresh LM start, with
+        ``abort_check`` polled before phase 1 and before every chunk (an
+        abort writes nothing back). The result is dropped if the pools were
+        compacted meanwhile. With ``propagate=True`` keyframes and map points
+        created while the BA ran are corrected through an anchor keyframe
+        (the reference's spanning-tree propagation) and ``on_poses_corrected``
+        receives the anchor correction. Returns True if results were
+        applied."""
+        with self.timer.stage("14.global_ba"):
+            return self._global_ba(iters, abort_check, propagate)
+
+    def _global_ba(self, iters, abort_check, propagate) -> bool:
+        m = self.map
+        with m.lock:
+            kfs = [int(k) for k in m.valid_kf_ids()]
+            if len(kfs) < 3:
+                return False
+            snap_epoch = m.remap_epoch
+            snap_n_kf = m.n_kf
+            old_R = m.kf_R.copy()
+            old_t = m.kf_t.copy()
+            pts = m.valid_mp_ids()[: self.ba_point_cap]
+            kf_idx, feat_idx = m.observations_of(pts)
+            obs_mp_global = m.kf_feat_mp[kf_idx, feat_idx]
+            kf_lut = np.full(m.cfg.max_keyframes, -1, np.int32)
+            kf_lut[np.asarray(kfs)] = np.arange(len(kfs))
+            mp_lut = np.full(m.cfg.max_map_points, -1, np.int32)
+            mp_lut[pts] = np.arange(len(pts))
+            sel = (kf_lut[kf_idx] >= 0) & (mp_lut[obs_mp_global] >= 0)
+            o_kf = kf_lut[kf_idx[sel]]
+            o_mp = mp_lut[obs_mp_global[sel]]
+            o_uv = m.kf_feat_xy[kf_idx[sel], feat_idx[sel]]
+            o_ur = m.kf_feat_ur[kf_idx[sel], feat_idx[sel]]
+            o_is2 = m.inv_level_sigma2[m.kf_feat_octave[kf_idx[sel], feat_idx[sel]]]
+            pts_xyz = m.mp_xyz[pts].copy()
+
+        Kb = self._bucket(len(kfs), [16, 32, 64, 96, 128, 192, 256, 384, 512])
+        Pb = self._bucket(len(pts), [1024, 2048, 4096])
+        Ob = self._bucket(len(o_kf), [4096, 8192, 16384, 32768, 65536])
+        if Kb is None or Pb is None or Ob is None:
+            return False
+
+        def pad(a, n, fill=0):
+            out = np.full((n,) + a.shape[1:], fill, a.dtype)
+            out[: len(a)] = a
+            return self._dev(out)
+
+        R_pad = np.zeros((Kb, 3, 3), np.float32)
+        R_pad[:] = np.eye(3)
+        R_pad[: len(kfs)] = old_R[kfs]
+        fixed_mask = np.zeros(len(kfs), bool)
+        fixed_mask[:2] = True
+        prob = ba_ops.BAProblem(
+            R=self._dev(R_pad), t=pad(old_t[kfs], Kb), pts=pad(pts_xyz, Pb),
+            obs_kf=pad(o_kf.astype(np.int32), Ob), obs_mp=pad(o_mp.astype(np.int32), Ob),
+            obs_uv=pad(o_uv.astype(np.float32), Ob),
+            obs_inv_sigma2=pad(o_is2.astype(np.float32), Ob, 1.0),
+            obs_valid=pad(np.ones(len(o_kf), bool), Ob, False),
+            fixed_pose=pad(fixed_mask, Kb, True),
+            obs_ur=pad(o_ur.astype(np.float32), Ob, -1.0), bf=0.0)
+        if abort_check is not None and abort_check():
+            return False
+
+        def run(p, n_iters):
+            return ba_ops.local_ba(p, self._K_dev, cam_type=self.cam_type,
+                                   chi2_th=ba_ops.CHI2_MONO, iters1=n_iters, iters2=0)
+
+        res = run(prob, iters[0])
+        prob = prob._replace(R=res.R, t=res.t, pts=res.pts,
+                             obs_valid=prob.obs_valid & res.obs_inlier)
+        done = 0
+        while done < iters[1]:
+            if abort_check is not None and abort_check():
+                return False
+            res = run(prob, 2)
+            prob = prob._replace(R=res.R, t=res.t, pts=res.pts)
+            done += 2
+        Kn = len(kfs)
+        buf = kernels.ba_result_packer()(res.R, res.t, res.pts, res.obs_inlier).cpu().numpy()
+        Rn = buf[0: Kb * 9].view(np.float32).reshape(Kb, 3, 3)[:Kn]
+        tn = buf[Kb * 9: Kb * 12].view(np.float32).reshape(Kb, 3)[:Kn]
+        ptsn = buf[Kb * 12: Kb * 12 + Pb * 3].view(np.float32).reshape(Pb, 3)[: len(pts)]
+
+        with m.lock:
+            if m.remap_epoch != snap_epoch:
+                # pools compacted while the solve ran: the gathered ids are
+                # stale, drop the result (a later GBA redoes the work)
+                return False
+            for i, k in enumerate(kfs):
+                if not fixed_mask[i] and m.kf_valid[k]:
+                    m.kf_R[k] = Rn[i]
+                    m.kf_t[k] = tn[i]
+            in_ba = np.zeros(m.cfg.max_map_points, bool)
+            keep = m.mp_valid[pts]
+            m.mp_xyz[pts[keep]] = ptsn[keep]
+            m.touch()
+            in_ba[pts[keep]] = True
+            if propagate:
+                self._propagate_gba(kfs, snap_n_kf, old_R, old_t, in_ba)
+        self.stats["gba_runs"] = self.stats.get("gba_runs", 0) + 1
+        return True
+
+    def _propagate_gba(self, kfs, snap_n_kf, old_R, old_t, in_ba):
+        """Keyframes created during the global BA: T_k_new = T_k_old ∘
+        (T_a_old⁻¹ ∘ T_a_new) with anchor a = the spanning-tree parent when it
+        was in the BA's snapshot, else the most covisible snapshot keyframe;
+        map points the BA did not solve keep their position in their
+        reference keyframe's camera frame. Under the map lock."""
+        m = self.map
+        in_snap = np.zeros(m.cfg.max_keyframes, bool)
+        in_snap[np.asarray(kfs)] = True
+        Ra_rel = old_R[kfs[-1]].T @ m.kf_R[kfs[-1]]
+        ta_rel = old_R[kfs[-1]].T @ (m.kf_t[kfs[-1]] - old_t[kfs[-1]])
+        for k in range(snap_n_kf, m.n_kf):
+            old_R[k] = m.kf_R[k]
+            old_t[k] = m.kf_t[k]
+            if not m.kf_valid[k]:
+                continue
+            pa = int(m.kf_parent[k])
+            if 0 <= pa < len(in_snap) and in_snap[pa] and m.kf_valid[pa]:
+                a = pa
+            else:
+                w = m.covisibility_row(k)
+                w[~in_snap[: len(w)]] = 0
+                a = int(np.argmax(w)) if w.max() > 0 else kfs[-1]
+            Ra_rel = old_R[a].T @ m.kf_R[a]
+            ta_rel = old_R[a].T @ (m.kf_t[a] - old_t[a])
+            m.kf_R[k] = (old_R[k] @ Ra_rel).astype(np.float32)
+            m.kf_t[k] = (old_R[k] @ ta_rel + old_t[k]).astype(np.float32)
+        all_mp = m.valid_mp_ids()
+        rest = all_mp[~in_ba[all_mp]]
+        if len(rest):
+            ref = np.clip(m.mp_ref_kf[rest], 0, m.cfg.max_keyframes - 1)
+            x_cam = np.einsum("nij,nj->ni", old_R[ref], m.mp_xyz[rest]) + old_t[ref]
+            x_new = np.einsum("nij,nj->ni", m.kf_R[ref].transpose(0, 2, 1),
+                              x_cam - m.kf_t[ref])
+            m.mp_xyz[rest] = x_new.astype(np.float32)
+            m.touch()
+        if self.on_poses_corrected is not None:
+            self.on_poses_corrected(Ra_rel.astype(np.float32), ta_rel.astype(np.float32))
 
     @staticmethod
     def _bucket(n: int, buckets):

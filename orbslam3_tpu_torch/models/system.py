@@ -1,18 +1,23 @@
-"""System facade: wires tracking + local mapping for the monocular rig.
+"""System facade: wires tracking, local mapping, loop closing and the Atlas
+for the monocular rig.
 
 Port of the monocular visual path of ``orbslam3_tpu/models/system.py``:
-``SlamSystem(..., enable_loop_closing=False)`` with ``track_monocular``,
-trajectory export and stats. ``mapping_mode="sync"`` runs the mapper inline
-per keyframe (deterministic); ``"async"`` hands keyframes to the mapper
-thread of ``models/async_runtime.py``, and ``TrackingParams(pipeline=True)``
-adds the tracker's software pipeline. Everything that reads tracker state
-from outside (``state``, ``stats``, the trajectory export, ``shutdown``)
-first flushes the pipeline.
+``SlamSystem`` with ``track_monocular``, trajectory export and stats, loop
+closing on by default (``models/loop_closing.py``: the BoW database, loop and
+merge detection, Sim3 verification, essential-graph correction,
+SearchAndFuse, then a global BA), BoW relocalization candidates and
+relocalization into a stored Atlas map. ``mapping_mode="sync"`` runs the
+mapper and the loop closer inline per keyframe (deterministic); ``"async"``
+hands keyframes to the mapper thread and the loop-closing thread of
+``models/async_runtime.py`` (a loop correction starts a background global
+BA), and ``TrackingParams(pipeline=True)`` adds the tracker's software
+pipeline. Everything that reads tracker state from outside (``state``,
+``stats``, the trajectory export, ``shutdown``) first flushes the pipeline.
 
 Every tensor lives on ``device``; ``device=None`` is the CUDA card, and there
-is no fallback to the CPU. Options this port does not have yet (loop closing,
-stereo/RGB-D, KB8 end to end, the viewer) raise ``NotImplementedError`` naming
-the ROADMAP item.
+is no fallback to the CPU. Options this port does not have yet (stereo /
+RGB-D, KB8 end to end, the viewer, the inertial post-loop BA) raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from ..ops import features as feat_ops
 from .async_runtime import AsyncRuntime
 from .atlas import Atlas
 from .local_mapping import LocalMapper
+from .loop_closing import LoopCloser
 from .map import MapConfig, MapState
 from .tracking import Tracker, TrackingParams, TrackState
 from ..utils.timing import StageTimer
@@ -45,8 +51,6 @@ class SlamSystem:
                  mapping_mode: str = "sync",
                  kf_cull_redundancy: float = 0.9,
                  use_viewer: bool = False, device=None):
-        if enable_loop_closing:
-            _not_ported("loop closing", "loop closing, vocabulary, Sim3 and merge")
         if mapping_mode not in ("sync", "async"):
             raise ValueError(f"mapping_mode must be 'sync' or 'async', got {mapping_mode!r}")
         if bf or th_depth:
@@ -65,6 +69,9 @@ class SlamSystem:
         self.atlas = Atlas(self.map_cfg)
         self._K = np.asarray(K, np.float32)
         self._wh = wh
+        self._enable_lc = bool(enable_loop_closing)
+        self.merge_errors = 0
+        self.last_merge_error = None
         self._kf_cull_redundancy = float(kf_cull_redundancy)
         self.cam_type = 0
         self.tracker = Tracker(K, D, wh, self.orb_cfg, self.atlas.current,
@@ -76,6 +83,7 @@ class SlamSystem:
             self.tracker.mapper_accepting = self.runtime.accepting
         self._bind_map(self.atlas.current)
         self.tracker.on_tracking_lost = self._on_tracking_lost
+        self.tracker.try_cross_map_reloc = self._try_cross_map_reloc
         self.frame_times: list[float] = []
         self.frame_spans: list[tuple] = []   # (t0, t1) perf_counter, per frame
 
@@ -84,16 +92,45 @@ class SlamSystem:
         return self.atlas.current
 
     def _bind_map(self, m):
-        """(Re)bind mapper and tracker to the active atlas map."""
+        """(Re)bind mapper, loop closer and tracker to the active atlas map."""
         self.tracker.map = m
         self.tracker.timer = self.timer
         prev_stats = self.mapper.stats if getattr(self, "mapper", None) is not None else None
+        prev_lc_stats = (self.loop_closer.stats
+                         if getattr(self, "loop_closer", None) is not None else None)
         self.mapper = LocalMapper(m, self._K, self.orb_cfg, wh=self._wh, device=self.device)
         if prev_stats is not None:
             self.mapper.stats.update(prev_stats)   # counters are system-lifetime
         self.mapper.timer = self.timer
         self.mapper.kf_cull_redundancy = self._kf_cull_redundancy
         self.mapper.tracker = self.tracker
+        self.loop_closer = None
+        if self._enable_lc:
+            # the reference's A.5 gates (20/15/20/50/80) are absolute counts
+            # tuned for 1000+-feature budgets: scale them with the budget,
+            # floored at 40%
+            gs = max(min(1.0, self.orb_cfg.n_features / 1000.0), 0.4)
+            self.loop_closer = LoopCloser(
+                m, self._K, self._wh, fix_scale=False, cam_type=self.cam_type,
+                n_bow_matches=int(round(20 * gs)), n_bow_inliers=int(round(15 * gs)),
+                n_sim3_inliers=int(round(20 * gs)), n_proj_matches=int(round(50 * gs)),
+                n_proj_opt_matches=int(round(80 * gs)), device=self.device)
+            self.loop_closer.timer = self.timer
+            if prev_lc_stats is not None:
+                self.loop_closer.stats.update(prev_lc_stats)
+            # SearchAndFuse: the mapper's projection fuse
+            self.loop_closer.fuse_fn = (
+                lambda mp_ids, kf: self.mapper._fuse_into(np.asarray(mp_ids), int(kf), 4096))
+            self.loop_closer.is_inertial = (
+                lambda: getattr(self.tracker, "imu_initialized", False))
+            # BoW relocalization candidates (DetectRelocalizationCandidates)
+            self.tracker.reloc_candidates_fn = self.loop_closer.detect_relocalization_candidates
+            # merge detection rides the loop closer's database; execution here
+            self.loop_closer.stored_maps_fn = self.atlas.stored_maps
+            self.loop_closer.merge_fn = self._merge_with
+        else:
+            self.tracker.reloc_candidates_fn = None
+        self.mapper.on_poses_corrected = self._on_world_corrected
         if self.runtime is not None:
             m.on_remap["runtime"] = (
                 lambda kf_remap, mp_remap, _m=m: self.runtime.on_map_remap(_m, kf_remap))
@@ -104,15 +141,41 @@ class SlamSystem:
                 self.runtime.insert_keyframe(kf_id, initial)
                 return
             # sync, or the bootstrap BA, which tracking needs at once; the
-            # mapper may compact the pools and remap the id
-            self.mapper.process_keyframe(kf_id, initial=initial)
+            # mapper may compact the pools: go on with the remapped id
+            kf_id = self.mapper.process_keyframe(kf_id, initial=initial)
+            if self.loop_closer is not None and not initial:
+                if self.loop_closer.process_keyframe(kf_id):
+                    # loop corrected → global BA (RunGlobalBundleAdjustment)
+                    self.run_post_loop_gba(kf_id)
+            if len(self.atlas.maps) > 1 and self.loop_closer is None:
+                # merge detection rides the loop closer's database query;
+                # this brute-force scan runs only without a loop closer
+                self._check_map_merge(kf_id)
 
         self.tracker.on_new_keyframe = on_kf
 
+    def run_post_loop_gba(self, kf_id: int, abort_check=None, propagate: bool = False) -> bool:
+        """The global consistency pass after a loop correction: visual global
+        BA. An IMU-initialized map takes FullInertialBA(7) in the reference,
+        which comes with the visual-inertial slice."""
+        if getattr(self.tracker, "imu_initialized", False):
+            _not_ported("the inertial post-loop BA (FullInertialBA)", "visual-inertial")
+        return self.mapper.global_ba(abort_check=abort_check, propagate=propagate)
+
+    def _on_world_corrected(self, R_rel, t_rel):
+        """After a propagated background global BA: shift the tracker's live
+        frame by the anchor correction T_f_new = T_f_old ∘ T_rel. (The motion
+        model is camera-relative and needs no change.) Runs under the map
+        lock."""
+        lf = self.tracker.last_frame
+        if lf is not None and lf.R is not None:
+            R_old = lf.R.copy()
+            lf.R = (R_old @ R_rel).astype(np.float32)
+            lf.t = (R_old @ t_rel + lf.t).astype(np.float32)
+
     def _on_tracking_lost(self):
         """Sustained loss: store the map in the Atlas and start a new one, or
-        wipe it when it is too young to keep (reference CreateMapInAtlas).
-        Merging a stored map back waits for the loop closer."""
+        wipe it when it is too young to keep (reference CreateMapInAtlas)."""
         cur = self.atlas.current
         self.tracker.freeze_trajectory(mark_lost=cur.n_kf < 10)
         if cur.n_kf >= 10:
@@ -123,6 +186,123 @@ class SlamSystem:
             new_map = self.atlas.maps[idx]
         self._bind_map(new_map)
         self.tracker.reset_for_new_map(new_map)
+
+    def _check_map_merge(self, kf_id: int) -> bool:
+        """Cross-map place recognition when no loop closer is bound: verify
+        the new keyframe against the stored maps' 10 newest keyframes. With a
+        loop closer, merge detection is its database query over whole stored
+        maps (``LoopCloser._try_merge``)."""
+        cur = self.atlas.current
+        closer = self.loop_closer
+        if closer is None:
+            closer = LoopCloser(cur, self._K, self._wh, fix_scale=False, device=self.device)
+        for old in self.atlas.stored_maps():
+            for k2 in old.valid_kf_ids()[::-1][:10]:
+                with cur.lock, old.lock:
+                    ok, S21 = closer._verify_candidate(kf_id, int(k2), map1=cur, map2=old)
+                if not ok:
+                    continue
+                if self._merge_with(kf_id, old, int(k2), S21):
+                    return True
+        return False
+
+    def _merge_with(self, kf_id: int, old, k2: int, S21, cur_map=None,
+                    cur_epoch=None) -> bool:
+        """Atlas merge given a verified Sim3 between current-map ``kf_id`` and
+        stored-map ``k2``: one world Sim3 moves every keyframe and map point
+        of the current map into the stored map's world (the reference's
+        MergeLocal window propagation factors into exactly that), the
+        tracker's trajectory and live frame follow, then the weld
+        (``_weld``). ``cur_map`` / ``cur_epoch`` name the map and compaction
+        epoch the Sim3 was verified against; the merge is dropped if either
+        changed since."""
+        cur = self.atlas.current
+        if cur_map is not None and cur_map is not cur:
+            return False
+        with cur.lock, old.lock:
+            if cur_epoch is not None and cur.remap_epoch != cur_epoch:
+                return False
+            if not cur.kf_valid[kf_id] or not old.kf_valid[k2]:
+                return False
+            # S21: x_kf2 = s R x_kf1 + t (camera frames); world alignment
+            # W_old = T_kf2⁻¹ ∘ S21 ∘ T_kf1 (W_cur)
+            s, R21, t21 = S21
+            R1, t1 = cur.kf_R[kf_id], cur.kf_t[kf_id]
+            R2, t2 = old.kf_R[int(k2)], old.kf_t[int(k2)]
+            R_a = R2.T @ R21 @ R1
+            t_a = R2.T @ (s * (R21 @ t1) + t21 - t2)
+            self.atlas.merge_current_into(old, R_a.astype(np.float32),
+                                          t_a.astype(np.float32), s_align=float(s))
+            kf_map = self.atlas.last_merge_kf_map
+            self.tracker.remap_trajectory_for_merge(kf_map)
+            self._bind_map(self.atlas.current)
+            self.tracker.map = self.atlas.current
+            lf = self.tracker.last_frame
+            if lf is not None and lf.R is not None:
+                R_new = lf.R @ R_a.T
+                t_new = float(s) * lf.t - R_new @ t_a
+                lf.R, lf.t = R_new.astype(np.float32), t_new.astype(np.float32)
+            self.tracker.ref_kf = int(old.valid_kf_ids()[-1])
+            nk = kf_map.get(int(kf_id))
+            if nk is not None:
+                self._weld(nk, int(k2))
+        return True
+
+    def _weld(self, nk: int, k2: int, cap: int = 4096):
+        """Fuse duplicated landmarks between the migrated keyframe ``nk`` and
+        the matched old-map region around ``k2``, run a welding local BA, then
+        the essential graph on the rest of the map with the welding window
+        fixed and its edges measured on the pre-weld poses (the reference's
+        MergeLocal)."""
+        m = self.atlas.current
+        mapper = self.mapper
+        group2 = np.concatenate([[k2], m.best_covisible(k2, 5, min_weight=15)])
+        pts2 = m.local_map_points(group2.astype(np.int32))
+        mapper._fuse_into(pts2, nk, cap)
+        row = m.kf_feat_mp[nk]
+        pts_nk = np.unique(row[row >= 0])
+        for t in group2:
+            mapper._fuse_into(pts_nk, int(t), cap)
+        m.refresh_map_points(pts_nk)
+        meas = (m.kf_R.copy(), m.kf_t.copy())
+        mapper.local_ba(nk)
+        if self.loop_closer is not None and m.kf_valid[: m.n_kf].sum() > 4:
+            fixed = [nk] + [int(g) for g in group2]
+            try:
+                self.loop_closer.optimize_essential_graph(fixed, meas=meas)
+            except Exception as e:   # keep the merge, but count the defect
+                self.merge_errors += 1
+                self.last_merge_error = repr(e)
+                from ..utils import verbose
+                verbose.print_mess(f"merge essential graph failed: {e!r}", verbose.NORMAL)
+
+    def _try_cross_map_reloc(self, frame) -> bool:
+        """Relocalize into a stored map; success merges the current map into
+        it (a rigid alignment from the frame's two poses)."""
+        tr = self.tracker
+        R_cur = t_cur = None
+        if tr.last_frame is not None and tr.last_frame.R is not None:
+            R_cur, t_cur = tr.last_frame.R.copy(), tr.last_frame.t.copy()
+        for old in self.atlas.stored_maps():
+            with old.lock:   # the caller holds the current map's lock
+                if not tr._relocalize(frame, in_map=old):
+                    continue
+                cur = self.atlas.current
+                if cur.n_kf >= 2 and R_cur is not None:
+                    # world_old ← world_cur from the dual pose
+                    R_a = frame.R.T @ R_cur
+                    t_a = frame.R.T @ (t_cur - frame.t)
+                    self.atlas.merge_current_into(old, R_a.astype(np.float32),
+                                                  t_a.astype(np.float32))
+                    tr.remap_trajectory_for_merge(self.atlas.last_merge_kf_map)
+                else:
+                    tr.freeze_trajectory()
+                    self.atlas.current_idx = self.atlas.maps.index(old)
+                self._bind_map(self.atlas.current)
+                tr.map = self.atlas.current
+                tr.state = TrackState.OK
+                return True
+        return False
 
     def track_monocular(self, img: np.ndarray, ts: float) -> dict:
         t0 = time.perf_counter()
@@ -175,15 +355,30 @@ class SlamSystem:
                         + " " + " ".join(f"{v:.7f}" for v in q[i]) + "\n")
 
     def stats(self) -> dict:
+        """Counters of the run. The exceptions the threads and the tracker's
+        BoW query catch (so that a failed round does not stop the pipeline)
+        are counted, never hidden: ``mapper_errors``, ``lc_errors``,
+        ``gba_errors``, ``reloc_query_errors`` and ``merge_errors`` (the
+        essential graph of an Atlas merge), each with its last ``repr``."""
         self.tracker.flush_pending()
         ft = np.array(self.frame_times) if self.frame_times else np.zeros(1)
-        return {
+        out = {
             "n_frames": len(self.frame_times),
             "n_keyframes": int(self.map.kf_valid.sum()),
             "n_map_points": int(self.map.mp_valid.sum()),
             "mean_frame_ms": float(ft.mean() * 1e3),
             "median_frame_ms": float(np.median(ft) * 1e3),
             "fps": float(1.0 / max(ft.mean(), 1e-9)),
+            "mapper_errors": 0, "lc_errors": 0, "gba_errors": 0,
             **self.mapper.stats,
-            "stage_times": self.timer.stats(),
         }
+        if self.loop_closer is not None:
+            out.update(self.loop_closer.stats)
+        out["reloc_query_errors"] = self.tracker.reloc_query_errors
+        if self.tracker.last_reloc_query_error is not None:
+            out["last_reloc_query_error"] = self.tracker.last_reloc_query_error
+        out["merge_errors"] = self.merge_errors
+        if self.last_merge_error is not None:
+            out["last_merge_error"] = self.last_merge_error
+        out["stage_times"] = self.timer.stats()
+        return out

@@ -6,19 +6,20 @@ LOST), only the device calls change. It covers monocular initialization
 (two-view H/F RANSAC → initial map), the fused per-frame tracker
 (``kernels.fused_track_pooled``), the staged fallback cascade (motion model
 with 2x-radius retry, reference keyframe, local map), relocalization against
-recent keyframes (descriptor matching → PnP RANSAC → MLPnP refinement → pose
-LM → guided rescue rounds), the software pipeline
-(``TrackingParams.pipeline``, depth 1 and 2), the keyframe policy with the
-mapper's back-pressure gate, and trajectory logging/export.
+the keyframe database's BoW candidates and the recent keyframes (descriptor
+matching → PnP RANSAC → MLPnP refinement → pose LM → guided rescue rounds)
+and, failing that, into a stored Atlas map (the system's
+``try_cross_map_reloc``), the software pipeline (``TrackingParams.pipeline``,
+depth 1 and 2), the keyframe policy with the mapper's back-pressure gate, and
+trajectory logging/export with the remapping an Atlas merge needs.
 
 The pipeline's packed result travels to the host as a non-blocking copy into
 pinned memory followed by a CUDA event; consuming a frame waits on that event
 only, never on the whole device (the mapper thread may have work queued on
 its own stream).
 
-Not ported yet (ROADMAP.md): the BoW relocalization candidates and cross-map
-relocalization (their hooks exist and stay None), stereo/RGB-D front ends and
-the IMU paths (``_track_with_prediction``).
+Not ported yet (ROADMAP.md): stereo/RGB-D front ends and the IMU paths
+(``_track_with_prediction``).
 """
 from __future__ import annotations
 
@@ -146,12 +147,16 @@ class Tracker:
         # by _relocalize
         self.path_counts = {"fused": 0, "fused_retry": 0, "staged": 0, "reloc_frames": 0}
         # Atlas hooks (set by the system): sustained loss, and relocalization
-        # into a stored map (None until the merge is ported)
+        # into a stored map (a success merges the current map into it)
         self.on_tracking_lost = None
         self.try_cross_map_reloc = None
-        # optional BoW relocalization-candidate provider (None until the
-        # keyframe database is ported): fn(desc, valid) → keyframe ids
+        # BoW relocalization-candidate provider, bound by the system to the
+        # loop closer's keyframe database: fn(desc, valid) → keyframe ids.
+        # A query that raises is counted here and relocalization goes on
+        # with the recent keyframes
         self.reloc_candidates_fn = None
+        self.reloc_query_errors = 0
+        self.last_reloc_query_error: str | None = None
         # async back-pressure: callable → bool (the mapper's queue<3 gate)
         self.mapper_accepting = None
         self.consecutive_lost = 0
@@ -479,8 +484,8 @@ class Tracker:
                 if not ok:
                     ok = self._track_reference_kf(frame)
         elif not ok:
-            # lost: relocalize against recent keyframes, then (once the merge
-            # is ported) into a stored map
+            # lost: relocalize against the BoW candidates and the recent
+            # keyframes, then into a stored map (which merges it back)
             ok = self._relocalize(frame)
             if not ok and self.try_cross_map_reloc is not None:
                 ok = self.try_cross_map_reloc(frame)
@@ -511,7 +516,9 @@ class Tracker:
                 bow_cands = self.reloc_candidates_fn(frame.desc, frame.valid)
                 cands = [int(c) for c in bow_cands] + \
                     [c for c in cands if int(c) not in set(map(int, bow_cands))]
-            except Exception as e:   # keep reloc alive, but surface the defect
+            except Exception as e:   # keep reloc alive, but count the defect
+                self.reloc_query_errors += 1
+                self.last_reloc_query_error = repr(e)
                 verbose.print_mess(f"relocalization candidate query failed: {e!r}",
                                    verbose.NORMAL)
         dev = frame.dev
@@ -1041,6 +1048,21 @@ class Tracker:
                 out.append((ts, -1, None, None, True))
             else:
                 out.append((ts, k, Rcr, tcr, lost))
+        self.trajectory = out
+
+    def remap_trajectory_for_merge(self, kf_map: dict):
+        """After an Atlas merge: relative entries reference the pre-merge
+        current map; rewrite them to the migrated keyframe ids so they keep
+        receiving corrections in the merged map."""
+        out = []
+        for (ts, k, Rcr, tcr, lost) in self.trajectory:
+            if k >= 0:
+                nk = kf_map.get(int(k))
+                if nk is None:
+                    out.append((ts, -1, None, None, True))
+                    continue
+                k = nk
+            out.append((ts, k, Rcr, tcr, lost))
         self.trajectory = out
 
     def reanchor_trajectory(self, k: int):

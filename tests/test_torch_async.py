@@ -106,9 +106,13 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         assert SlamSystem(K4, None, (752, 480), n_features=256,
                           enable_loop_closing=False).device.type == "cuda"
+        s = SlamSystem(K4, None, (752, 480))                 # every default
+        assert s.device.type == "cuda" and s.loop_closer.device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         SlamSystem(K4, None, (752, 480), n_features=256, enable_loop_closing=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SlamSystem(K4, None, (752, 480))                     # every default
     with pytest.raises(RuntimeError, match="CUDA"):
         features.make_extractor(480, 752, features.OrbConfig(n_features=256))
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -118,6 +122,9 @@ def test_entry_points_default_to_the_card():
     s = SlamSystem(K4, None, (752, 480), n_features=256, enable_loop_closing=False,
                    device="cpu")
     assert s.device.type == "cpu" and s.tracker.device.type == "cpu"
+    s = SlamSystem(K4, None, (752, 480), device="cpu")       # loop closing is the default
+    assert s.loop_closer is not None and s.loop_closer.device.type == "cpu"
+    assert s.tracker.reloc_candidates_fn == s.loop_closer.detect_relocalization_candidates
 
 
 class _FakeMapper:
@@ -207,3 +214,82 @@ def test_launch_counter_loses_no_update():
     finally:
         mr.match_rows_dual.launches = before
         sys.setswitchinterval(prev)
+
+
+class _LoopSystem:
+    """What the runtime's loop thread reads of a system: the drifted map
+    (tests/test_loop_closing.py's, rebuilt by torch_port_helpers), the port's
+    loop closer on it, a real mapper for the background global BA."""
+    device = torch.device("cpu")
+
+    def __init__(self):
+        from orbslam3_tpu_torch.models import map as tmap
+        from orbslam3_tpu_torch.models.local_mapping import LocalMapper
+        from orbslam3_tpu_torch.models.loop_closing import LoopCloser
+        from orbslam3_tpu_torch.ops.features import OrbConfig
+        from torch_port_helpers import build_drifted_map
+        self.map, gt_R, gt_t, self.n_kf = build_drifted_map(tmap)
+        self.gt = np.stack([-R.T @ t for R, t in zip(gt_R, gt_t)])
+        K = np.array([458.0, 458.0, 376.0, 240.0], np.float32)
+        self.loop_closer = LoopCloser(self.map, K, (752, 480), min_kfs=4, exclude_recent=4,
+                                      fix_scale=True, device="cpu")
+        self.mapper = LocalMapper(self.map, K, OrbConfig(n_features=512), device="cpu")
+        self.tracker = object()
+
+
+def test_loop_thread_corrects_pauses_mapper_and_joins():
+    """The drifted map's keyframes go through the loop-closing thread: it
+    corrects the loop at keyframe 18 with the mapper paused for the
+    correction and released after it, starts the background global BA, and
+    ``shutdown`` joins the mapper, loop and global-BA threads."""
+    sysm = _LoopSystem()
+    rt = AsyncRuntime(sysm)
+    lc = sysm.loop_closer
+    paused = []
+    inner = lc._correct_loop
+
+    def correct(*a, **k):
+        paused.append(rt._stop_requested.is_set())
+        return inner(*a, **k)
+
+    lc._correct_loop = correct
+    try:
+        for k in range(sysm.n_kf):
+            rt.loop_queue.push((sysm.map, k))
+            assert rt.wait_idle(timeout=120.0)
+        gba = rt.gba
+    finally:
+        rt.shutdown(timeout=120.0)
+    assert rt.threads_alive() == []
+    assert lc.stats["loops_corrected"] == 1 and lc.loop_edges == [(18, 0)]
+    assert lc.stats.get("lc_errors", 0) == 0, lc.stats.get("last_lc_error")
+    assert paused == [True] and not rt._stop_requested.is_set()
+    assert gba is not None and gba.applied is True and not gba.running
+    assert sysm.mapper.stats["gba_runs"] == 1 and sysm.mapper.stats.get("gba_errors", 0) == 0
+    m = sysm.map
+    centres = np.stack([-m.kf_R[k].T @ m.kf_t[k] for k in range(sysm.n_kf)])
+    errs = np.linalg.norm(centres - sysm.gt, axis=1)
+    assert errs[-1] < 0.2 and errs.max() < 0.6, errs
+
+
+def test_loop_thread_error_is_counted_and_releases_the_mapper():
+    """An exception inside the loop closer's round (here: in the
+    correction, after the mapper was paused) is counted in ``lc_errors`` with
+    its repr; the mapper is released and the thread goes on."""
+    sysm = _LoopSystem()
+    rt = AsyncRuntime(sysm)
+    lc = sysm.loop_closer
+
+    def broken(*a, **k):
+        raise RuntimeError("correction failed")
+
+    lc._correct_loop = broken
+    try:
+        for k in range(sysm.n_kf):
+            rt.loop_queue.push((sysm.map, k))
+        assert rt.wait_idle(timeout=120.0)
+        assert not rt._stop_requested.is_set() and rt.accepting()
+    finally:
+        rt.shutdown(timeout=60.0)
+    assert lc.stats["lc_errors"] >= 1 and "correction failed" in lc.stats["last_lc_error"]
+    assert lc.stats["loops_corrected"] == 0 and rt.threads_alive() == []

@@ -1,7 +1,9 @@
-"""The slice end to end: the JAX SlamSystem and the port's SlamSystem (sync
-mapping, no loop closing) on test_e2e_mono.py's fixture — RoomScene(seed=1),
-orbit_trajectory(32, radius=1.0, forward=0.04), 512 features,
-dense_tracking_params() (a fixed 5-frame keyframe cadence) — both on the CPU.
+"""The slice end to end: the JAX SlamSystem and the port's SlamSystem with
+their defaults (sync mapping, loop closing on) on test_e2e_mono.py's fixture —
+RoomScene(seed=1), orbit_trajectory(32, radius=1.0, forward=0.04), 512
+features, dense_tracking_params() (a fixed 5-frame keyframe cadence) — both on
+the CPU. The orbit never revisits a place, so the loop closers fill their
+keyframe databases and verify no candidate: the map is the mapper's alone.
 
 Measured on this fixture (CPU, float32): JAX ATE 0.0132 scene units with 8
 keyframes; the port ATE 0.0118-0.0120 (with 2 or 4 CPU threads) with 7
@@ -9,9 +11,11 @@ keyframes; both initialize at frame 6
 and track every later frame; the JAX run never relocalizes.
 
 Bounds: the port's ATE is no worse than max(1.5 x JAX ATE, JAX ATE + 0.02)
-and its keyframe count within ±2 of JAX's: the two differ only by float32
-rounding (pyramid resize, LM and BA sums), which moves individual matches
-and keyframe culling decisions but not the trajectory's accuracy class.
+and its keyframe count within ±2 of JAX's (±1 beside the loop closer's
+database rows): the two differ only by float32 rounding (pyramid resize, LM
+and BA sums), which moves individual matches and keyframe culling decisions
+but not the trajectory's accuracy class. The loop closers' counters
+(candidates checked, loops detected and corrected, errors) are equal.
 """
 import numpy as np
 import pytest
@@ -45,10 +49,9 @@ def runs():
     gt = np.array([-R.T @ t for R, t in poses])
     jparams = dense_tracking_params()
     jsys = JaxSlam(scene.K, None, (scene.w, scene.h), n_features=512, seed=0,
-                   tracking_params=jparams, enable_loop_closing=False)
+                   tracking_params=jparams)
     tsys = SlamSystem(scene.K, None, (scene.w, scene.h), n_features=512, seed=0,
-                      tracking_params=config_from(jparams, TrackingParams),
-                      enable_loop_closing=False, mapping_mode="sync", device="cpu")
+                      tracking_params=config_from(jparams, TrackingParams), device="cpu")
     out = {}
     for name, s in (("jax", jsys), ("torch", tsys)):
         states, ts, t_wc, lost = _run(s, imgs)
@@ -98,13 +101,26 @@ def test_trajectory_export_tum_format(runs, tmp_path):
     assert abs(np.linalg.norm(row[4:]) - 1.0) < 1e-4
 
 
-@pytest.mark.parametrize("kw", [dict(enable_loop_closing=True), dict(th_depth=35.0),
+def test_loop_closer_matches_reference(runs):
+    j, t = runs["jax"], runs["torch"]
+    lj, lt = j["system"].loop_closer, t["system"].loop_closer
+    assert lt is not None and t["system"].tracker.reloc_candidates_fn is not None
+    rows_j, rows_t = int(lj.bow_filled.sum()), int(lt.bow_filled.sum())
+    assert rows_t >= 3 and abs(rows_t - rows_j) <= 1, (rows_t, rows_j)
+    assert abs(t["stats"]["n_keyframes"] - j["stats"]["n_keyframes"]) <= 1
+    for key in ("candidates_checked", "loops_detected", "loops_corrected"):
+        assert t["stats"][key] == j["stats"][key], key
+    for key in ("lc_errors", "gba_errors", "mapper_errors", "reloc_query_errors"):
+        assert t["stats"][key] == 0, (key, t["stats"].get("last_" + key[:-1]))
+
+
+@pytest.mark.parametrize("kw", [dict(th_depth=35.0),
                                 dict(bf=40.0), dict(cam_type=1), dict(use_viewer=True),
                                 dict(tracking_params=TrackingParams(pose_starts=2))])
 def test_unported_options_raise(kw):
     """Options outside the port so far name their ROADMAP item instead of
     passing silently."""
-    base = dict(enable_loop_closing=False, device="cpu")
+    base = dict(device="cpu")
     base.update(kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SlamSystem(np.array([458.0, 457.0, 376.0, 240.0], np.float32), None, (752, 480),

@@ -1,8 +1,11 @@
 """The port runs where JAX is absent: importing every module of
-orbslam3_tpu_torch and extracting one frame must never import ``jax`` or the
-JAX package ``orbslam3_tpu`` (the machine with the GPU has no JAX), and no
-file of the port or of chip_smoke.py reads a file of that package: what the
-port shares with it (``csrc/mapops.cpp``) is a copy, held byte-equal here."""
+orbslam3_tpu_torch (the loop closer, vocabulary, Sim3 and pose-graph modules
+among them), extracting one frame and building a loop closer on the packaged
+vocabulary must never import ``jax`` or the JAX package ``orbslam3_tpu`` (the
+machine with the GPU has no JAX), and no file of the port or of chip_smoke.py
+reads a file of that package: what the port shares with it
+(``csrc/mapops.cpp``, ``data/vocab_synth.npz``) is a copy, held byte-equal
+here."""
 import ast
 import os
 import re
@@ -37,6 +40,14 @@ R, t = orbit_trajectory(2)[0]
 f = features.extract_orb(torch.from_numpy(scene.render(R, t)),
                          features.OrbConfig(n_features=256))
 assert int(f.valid.sum()) > 100
+from orbslam3_tpu_torch.models import loop_closing
+from orbslam3_tpu_torch.models.map import MapConfig, MapState
+for n in ("ops.vocab", "ops.sim3", "ops.posegraph", "models.loop_closing"):
+    assert "orbslam3_tpu_torch." + n in names, n
+lc = loop_closing.LoopCloser(MapState(MapConfig(n_features=256)),
+                             np.array([458.0, 457.0, 376.0, 240.0], np.float32),
+                             (752, 480), device="cpu")
+assert lc.vocab.n_words == 10000, lc.vocab.n_words
 assert not any(k.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu") for k in sys.modules)
 print("OK", len(names))
 """
@@ -48,7 +59,7 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     n_modules = int(res.stdout.split()[-1])
-    assert n_modules >= 25
+    assert n_modules >= 29
 
 
 def test_no_import_line_names_jax():
@@ -122,4 +133,16 @@ def test_mapops_source_is_the_ports_own_copy():
         os.path.realpath(os.path.join(REPO, "orbslam3_tpu_torch", "build")) + os.sep)
     with open(own, "rb") as a, open(os.path.join(REPO, "orbslam3_tpu", "native",
                                                   "mapops.cpp"), "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_vocabulary_is_the_ports_own_copy():
+    """The default vocabulary loads from the port's own data directory, and
+    that copy has not drifted from the reference's."""
+    from orbslam3_tpu_torch.models import loop_closing
+    own = os.path.join(REPO, "orbslam3_tpu_torch", "data", "vocab_synth.npz")
+    assert os.path.realpath(os.path.join(loop_closing._DATA_DIR, "vocab_synth.npz")) == \
+        os.path.realpath(own)
+    with open(own, "rb") as a, open(os.path.join(REPO, "orbslam3_tpu", "data",
+                                                  "vocab_synth.npz"), "rb") as b:
         assert a.read() == b.read()

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from orbslam3_tpu_torch.utils.loop_scenes import build_drifted_map  # noqa: F401
+
 N_FEATURES = 512
 
 
