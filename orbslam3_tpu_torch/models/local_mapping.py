@@ -14,8 +14,10 @@ tracking kernels can interleave, and eager PyTorch already launches every
 operator by itself. Global BA (``global_ba``, after a loop correction) keeps
 the reference's schedule: phase 1, then chunks of 2 LM iterations with an
 abort check between them. ``_fuse_into`` is the loop closer's SearchAndFuse
-and the merge's weld. The sharded and inertial branches are not ported
-(ROADMAP.md).
+and the merge's weld. A rig with depth (stereo, RGB-D) adds the right-column
+rows to BA (``bf``) and keeps close points in keyframe culling (the tracker's
+``th_depth``); a two-camera fisheye rig (``rig``) adds the second camera's
+rows. The sharded and inertial branches are not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -33,13 +35,16 @@ from .map import MapState
 class LocalMapper:
     def __init__(self, map_state: MapState, K: np.ndarray, orb_cfg,
                  wh=(752, 480), ba_window: int = 16, ba_max_fixed: int = 8,
-                 ba_point_cap: int = 4096, device=None):
+                 ba_point_cap: int = 4096, cam_type: int = 0, device=None):
         self.map = map_state
         self.device = resolve_device(device)
         self.K = np.asarray(K, np.float32)
         self.wh = np.asarray(wh, np.float32)
         self.orb_cfg = orb_cfg
-        self.cam_type = 0
+        self.cam_type = int(cam_type)
+        self.bf = 0.0      # set by the system for stereo / RGB-D / fisheye rigs
+        # two-camera rig (dict with cam_r / R_rl / t_rl): second-camera BA rows
+        self.rig = None
         self.ba_window = ba_window
         self.ba_max_fixed = ba_max_fixed
         self.ba_point_cap = ba_point_cap
@@ -411,12 +416,15 @@ class LocalMapper:
         if redundancy is None:
             redundancy = self.kf_cull_redundancy
         m = self.map
+        # a rig with depth counts only close points (the reference's ThDepth)
+        tr = self.tracker
+        th_depth = float(getattr(tr, "th_depth", 0.0) or 0.0) if self.bf > 0 else 0.0
 
         def redundancy_counts(cands):
             red_tot = native.kf_redundancy(
                 m.kf_feat_mp[: m.n_kf], m.kf_valid[: m.n_kf],
                 m.kf_feat_octave[: m.n_kf], m.kf_feat_depth[: m.n_kf],
-                0.0, cands, m.cfg.max_map_points)
+                th_depth, cands, m.cfg.max_map_points)
             if red_tot is not None:
                 return red_tot
             # numpy fallback: scale-unaware approximation
@@ -520,14 +528,8 @@ class LocalMapper:
         kf_lut[np.asarray(all_kfs)] = np.arange(len(all_kfs))
         mp_lut = np.full(m.cfg.max_map_points, -1, np.int32)
         mp_lut[pts] = np.arange(len(pts))
-        sel = (kf_lut[kf_idx] >= 0) & (mp_lut[obs_mp_global] >= 0)
-        o_kf = kf_lut[kf_idx[sel]]
-        o_mp = mp_lut[obs_mp_global[sel]]
-        o_uv = m.kf_feat_xy[kf_idx[sel], feat_idx[sel]]
-        o_ur = m.kf_feat_ur[kf_idx[sel], feat_idx[sel]]
-        o_is2 = m.inv_level_sigma2[m.kf_feat_octave[kf_idx[sel], feat_idx[sel]]]
-        o_src_kf = kf_idx[sel]
-        o_src_feat = feat_idx[sel]
+        (o_kf, o_mp, o_uv, o_ur, o_is2, o_cam, o_src_kf,
+         o_src_feat) = self._gather_obs(kf_idx, feat_idx, obs_mp_global, kf_lut, mp_lut)
         # the reference's size buckets: same padded shapes, same problem caps
         Kb = self._bucket(len(all_kfs), [4, 8, 12, 16, 24, 32])
         Pb = self._bucket(len(pts), [256, 512, 1024, 2048, 4096])
@@ -554,9 +556,44 @@ class LocalMapper:
             obs_valid=pad(np.ones(len(o_kf), bool), Ob, False),
             fixed_pose=pad(fixed_mask, Kb, True),
             obs_ur=pad(o_ur.astype(np.float32), Ob, -1.0),
-            bf=0.0,
+            bf=self.bf,
+            **self._rig_fields(o_cam, Ob),
         )
         return prob, all_kfs, fixed_mask, pts, o_src_kf, o_src_feat, len(o_kf)
+
+    def _gather_obs(self, kf_idx, feat_idx, obs_mp, kf_lut, mp_lut):
+        """BA observation rows of the observations whose keyframe and point
+        are both in the problem, followed on a rig by the second camera's
+        (ToBody) rows for the stereo-matched features. Returns (kf, mp, uv,
+        ur, inv_sigma2, cam, src_kf, src_feat); a second-camera row's
+        src_feat is -1, so an outlier verdict never erases the (left)
+        observation."""
+        m = self.map
+        sel = (kf_lut[kf_idx] >= 0) & (mp_lut[obs_mp] >= 0)
+        kf, ft = kf_idx[sel], feat_idx[sel]
+        rows = [kf_lut[kf], mp_lut[obs_mp[sel]], m.kf_feat_xy[kf, ft], m.kf_feat_ur[kf, ft],
+                m.inv_level_sigma2[m.kf_feat_octave[kf, ft]], np.zeros(len(kf), np.int32),
+                kf, ft]
+        if self.rig is None:
+            return rows
+        uvr = m.kf_feat_uvr[kf, ft]
+        has_r = uvr[:, 0] >= 0
+        n_r = int(has_r.sum())
+        second = [rows[0][has_r], rows[1][has_r], uvr[has_r], np.full(n_r, -1.0, np.float32),
+                  rows[4][has_r], np.ones(n_r, np.int32), kf[has_r],
+                  np.full(n_r, -1, ft.dtype)]
+        return [np.concatenate([a, b]) for a, b in zip(rows, second)]
+
+    def _rig_fields(self, o_cam, Ob):
+        """The second camera's BAProblem fields (none for a one-camera rig)."""
+        if self.rig is None:
+            return {}
+        out = np.zeros(Ob, np.int32)
+        out[: len(o_cam)] = o_cam
+        return dict(obs_cam=self._dev(out),
+                    cam_params2=self._dev(self.rig["cam_r"].astype(np.float32)),
+                    R_rl=self._dev(self.rig["R_rl"].astype(np.float32)),
+                    t_rl=self._dev(self.rig["t_rl"].astype(np.float32)))
 
     # ------------------------------------------------------------------
     def global_ba(self, iters: tuple[int, int] = (4, 6), abort_check=None,
@@ -592,12 +629,8 @@ class LocalMapper:
             kf_lut[np.asarray(kfs)] = np.arange(len(kfs))
             mp_lut = np.full(m.cfg.max_map_points, -1, np.int32)
             mp_lut[pts] = np.arange(len(pts))
-            sel = (kf_lut[kf_idx] >= 0) & (mp_lut[obs_mp_global] >= 0)
-            o_kf = kf_lut[kf_idx[sel]]
-            o_mp = mp_lut[obs_mp_global[sel]]
-            o_uv = m.kf_feat_xy[kf_idx[sel], feat_idx[sel]]
-            o_ur = m.kf_feat_ur[kf_idx[sel], feat_idx[sel]]
-            o_is2 = m.inv_level_sigma2[m.kf_feat_octave[kf_idx[sel], feat_idx[sel]]]
+            o_kf, o_mp, o_uv, o_ur, o_is2, o_cam, _, _ = self._gather_obs(
+                kf_idx, feat_idx, obs_mp_global, kf_lut, mp_lut)
             pts_xyz = m.mp_xyz[pts].copy()
 
         Kb = self._bucket(len(kfs), [16, 32, 64, 96, 128, 192, 256, 384, 512])
@@ -623,7 +656,8 @@ class LocalMapper:
             obs_inv_sigma2=pad(o_is2.astype(np.float32), Ob, 1.0),
             obs_valid=pad(np.ones(len(o_kf), bool), Ob, False),
             fixed_pose=pad(fixed_mask, Kb, True),
-            obs_ur=pad(o_ur.astype(np.float32), Ob, -1.0), bf=0.0)
+            obs_ur=pad(o_ur.astype(np.float32), Ob, -1.0), bf=self.bf,
+            **self._rig_fields(o_cam, Ob))
         if abort_check is not None and abort_check():
             return False
 

@@ -1,8 +1,10 @@
-"""System facade: wires tracking, local mapping, loop closing and the Atlas
-for the monocular rig.
+"""System facade: wires tracking, local mapping, loop closing and the Atlas.
 
-Port of the monocular visual path of ``orbslam3_tpu/models/system.py``:
-``SlamSystem`` with ``track_monocular``, trajectory export and stats, loop
+Port of the visual paths of ``orbslam3_tpu/models/system.py``: ``SlamSystem``
+with ``track_monocular`` (pinhole, or KB8 with ``cam_type=1``),
+``track_stereo`` and ``track_rgbd`` (``bf`` = baseline·fx, ``th_depth``),
+``set_fisheye_rig`` + ``track_stereo_fisheye`` (two KB8 cameras), trajectory
+export and stats, loop
 closing on by default (``models/loop_closing.py``: the BoW database, loop and
 merge detection, Sim3 verification, essential-graph correction,
 SearchAndFuse, then a global BA), BoW relocalization candidates and
@@ -14,9 +16,10 @@ BA), and ``TrackingParams(pipeline=True)`` adds the tracker's software
 pipeline. Everything that reads tracker state from outside (``state``,
 ``stats``, the trajectory export, ``shutdown``) first flushes the pipeline.
 
+A rig with depth (``bf > 0``) closes loops and merges maps at a fixed scale.
 Every tensor lives on ``device``; ``device=None`` is the CUDA card, and there
-is no fallback to the CPU. Options this port does not have yet (stereo /
-RGB-D, KB8 end to end, the viewer, the inertial post-loop BA) raise
+is no fallback to the CPU. Options this port does not have yet (the viewer,
+``pose_starts > 1``, the inertial sensors and the inertial post-loop BA) raise
 ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
@@ -53,10 +56,6 @@ class SlamSystem:
                  use_viewer: bool = False, device=None):
         if mapping_mode not in ("sync", "async"):
             raise ValueError(f"mapping_mode must be 'sync' or 'async', got {mapping_mode!r}")
-        if bf or th_depth:
-            _not_ported("stereo / RGB-D", "stereo, RGB-D and KB8 end to end")
-        if cam_type != 0:
-            _not_ported("the KB8 camera end to end", "stereo, RGB-D and KB8 end to end")
         if use_viewer:
             _not_ported("the viewer", "map save and load, the viewer, the example drivers")
         self.device = resolve_device(device)
@@ -69,13 +68,15 @@ class SlamSystem:
         self.atlas = Atlas(self.map_cfg)
         self._K = np.asarray(K, np.float32)
         self._wh = wh
+        self._bf = float(bf)
         self._enable_lc = bool(enable_loop_closing)
         self.merge_errors = 0
         self.last_merge_error = None
         self._kf_cull_redundancy = float(kf_cull_redundancy)
-        self.cam_type = 0
+        self.cam_type = int(cam_type)
         self.tracker = Tracker(K, D, wh, self.orb_cfg, self.atlas.current,
-                               params=tracking_params, seed=seed, device=self.device)
+                               params=tracking_params, seed=seed, bf=bf, th_depth=th_depth,
+                               cam_type=cam_type, device=self.device)
         # async runtime: the mapper thread and its keyframe queue
         self.runtime = None
         if mapping_mode == "async":
@@ -98,20 +99,24 @@ class SlamSystem:
         prev_stats = self.mapper.stats if getattr(self, "mapper", None) is not None else None
         prev_lc_stats = (self.loop_closer.stats
                          if getattr(self, "loop_closer", None) is not None else None)
-        self.mapper = LocalMapper(m, self._K, self.orb_cfg, wh=self._wh, device=self.device)
+        self.mapper = LocalMapper(m, self._K, self.orb_cfg, wh=self._wh,
+                                  cam_type=self.cam_type, device=self.device)
         if prev_stats is not None:
             self.mapper.stats.update(prev_stats)   # counters are system-lifetime
         self.mapper.timer = self.timer
         self.mapper.kf_cull_redundancy = self._kf_cull_redundancy
         self.mapper.tracker = self.tracker
+        self.mapper.bf = self._bf
+        self.mapper.rig = self.tracker.rig
         self.loop_closer = None
         if self._enable_lc:
             # the reference's A.5 gates (20/15/20/50/80) are absolute counts
             # tuned for 1000+-feature budgets: scale them with the budget,
             # floored at 40%
             gs = max(min(1.0, self.orb_cfg.n_features / 1000.0), 0.4)
+            # a rig with depth has a metric map: Sim3 with the scale fixed
             self.loop_closer = LoopCloser(
-                m, self._K, self._wh, fix_scale=False, cam_type=self.cam_type,
+                m, self._K, self._wh, fix_scale=self._bf > 0, cam_type=self.cam_type,
                 n_bow_matches=int(round(20 * gs)), n_bow_inliers=int(round(15 * gs)),
                 n_sim3_inliers=int(round(20 * gs)), n_proj_matches=int(round(50 * gs)),
                 n_proj_opt_matches=int(round(80 * gs)), device=self.device)
@@ -195,7 +200,8 @@ class SlamSystem:
         cur = self.atlas.current
         closer = self.loop_closer
         if closer is None:
-            closer = LoopCloser(cur, self._K, self._wh, fix_scale=False, device=self.device)
+            closer = LoopCloser(cur, self._K, self._wh, fix_scale=self._bf > 0,
+                                cam_type=self.cam_type, device=self.device)
         for old in self.atlas.stored_maps():
             for k2 in old.valid_kf_ids()[::-1][:10]:
                 with cur.lock, old.lock:
@@ -307,6 +313,43 @@ class SlamSystem:
     def track_monocular(self, img: np.ndarray, ts: float) -> dict:
         t0 = time.perf_counter()
         info = self.tracker.process_frame(img, ts)
+        t1 = time.perf_counter()
+        self.frame_times.append(t1 - t0)
+        self.frame_spans.append((t0, t1))
+        return info
+
+    def track_stereo(self, img_l: np.ndarray, img_r: np.ndarray, ts: float) -> dict:
+        """Rectified stereo step (``bf`` = baseline·fx)."""
+        t0 = time.perf_counter()
+        info = self.tracker.process_stereo_frame(img_l, img_r, ts)
+        t1 = time.perf_counter()
+        self.frame_times.append(t1 - t0)
+        self.frame_spans.append((t0, t1))
+        return info
+
+    def set_fisheye_rig(self, cam_r, R_rl, t_rl, lap_l=(0.0, 1e9), lap_r=(0.0, 1e9)):
+        """Two-camera fisheye rig (reference Camera2.* + Tlr): the second
+        camera's KB8 parameters, the right←left extrinsics and the lapping
+        areas. The mapper's BA gains the second camera's rows."""
+        self.tracker.set_fisheye_rig(cam_r, R_rl, t_rl, lap_l, lap_r)
+        self._bf = self.tracker.bf
+        self.mapper.bf = self.tracker.bf
+        self.mapper.rig = self.tracker.rig
+
+    def track_stereo_fisheye(self, img_l: np.ndarray, img_r: np.ndarray, ts: float) -> dict:
+        """Two-camera fisheye step (reference TrackStereo with KB8 cameras)."""
+        t0 = time.perf_counter()
+        info = self.tracker.process_fisheye_stereo_frame(img_l, img_r, ts)
+        t1 = time.perf_counter()
+        self.frame_times.append(t1 - t0)
+        self.frame_spans.append((t0, t1))
+        return info
+
+    def track_rgbd(self, img: np.ndarray, depth_map: np.ndarray, ts: float) -> dict:
+        """RGB-D step: the depth at each keypoint becomes a virtual right
+        coordinate (reference GrabImageRGBD + ComputeStereoFromRGBD)."""
+        t0 = time.perf_counter()
+        info = self.tracker.process_rgbd_frame(img, depth_map, ts)
         t1 = time.perf_counter()
         self.frame_times.append(t1 - t0)
         self.frame_spans.append((t0, t1))

@@ -1,9 +1,12 @@
-"""Tracking front end: the per-frame state machine (monocular, visual).
+"""Tracking front end: the per-frame state machine (visual sensors).
 
-Port of the monocular visual path of ``orbslam3_tpu/models/tracking.py``: the
-host state machine is the reference's (NOT_INITIALIZED / OK / RECENTLY_LOST /
-LOST), only the device calls change. It covers monocular initialization
-(two-view H/F RANSAC → initial map), the fused per-frame tracker
+Port of the visual paths of ``orbslam3_tpu/models/tracking.py``: the host
+state machine is the reference's (NOT_INITIALIZED / OK / RECENTLY_LOST /
+LOST), only the device calls change. It covers the front ends (monocular,
+rectified stereo, RGB-D, the two-camera fisheye rig; pinhole or KB8
+cameras), monocular initialization (two-view H/F RANSAC → initial map) and
+stereo initialization (one frame's depths), close-point spawning at each
+keyframe of a rig with depth, the fused per-frame tracker
 (``kernels.fused_track_pooled``), the staged fallback cascade (motion model
 with 2x-radius retry, reference keyframe, local map), relocalization against
 the keyframe database's BoW candidates and the recent keyframes (descriptor
@@ -16,10 +19,10 @@ trajectory logging/export with the remapping an Atlas merge needs.
 The pipeline's packed result travels to the host as a non-blocking copy into
 pinned memory followed by a CUDA event; consuming a frame waits on that event
 only, never on the whole device (the mapper thread may have work queued on
-its own stream).
+its own stream). The pipelined stereo front end keeps each frame's right-x
+vector on the device for the fused step and brings it home the same way.
 
-Not ported yet (ROADMAP.md): stereo/RGB-D front ends and the IMU paths
-(``_track_with_prediction``).
+Not ported yet (ROADMAP.md): the IMU paths (``_track_with_prediction``).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from ..ops import camera as cam_ops
 from ..ops import features as feat_ops
 from ..ops import matching as match_ops
 from ..ops import pnp as pnp_ops
+from ..ops import stereo as stereo_ops
 from ..utils import verbose
 from ..utils.timing import StageTimer
 from . import kernels
@@ -87,12 +91,22 @@ class Tracker:
     def __init__(self, K: np.ndarray, D: np.ndarray | None, wh: tuple[int, int],
                  orb_cfg: feat_ops.OrbConfig, map_state: MapState,
                  params: TrackingParams | None = None, seed: int = 0,
+                 bf: float = 0.0, th_depth: float = 0.0, cam_type: int = 0,
                  device=None):
+        # cam_type: 0 = pinhole (K = fx fy cx cy, D = radtan), 1 = Kannala-
+        # Brandt-8 fisheye (K = fx fy cx cy k0..k3; keypoints stay raw and
+        # every projection goes through the model)
         self.device = resolve_device(device)
-        self.cam_type = 0
+        self.cam_type = int(cam_type)
         self.cam_params = np.asarray(K, np.float32)
         self.K = np.asarray(K, np.float32)[:4]
-        self.D = None if D is None else np.asarray(D, np.float32)
+        self.D = None if (D is None or self.cam_type != 0) else np.asarray(D, np.float32)
+        # stereo / RGB-D: bf = baseline·fx; th_depth = the close/far point
+        # threshold in map units (the reference's ThDepth times the baseline)
+        self.bf = float(bf)
+        self.th_depth = float(th_depth)
+        # two-camera fisheye rig (set_fisheye_rig)
+        self.rig = None
         self.wh = np.asarray(wh, np.float32)
         self.orb_cfg = orb_cfg
         self._map = map_state
@@ -106,8 +120,9 @@ class Tracker:
         self.current_frame: Frame | None = None
         self.state = TrackState.NOT_INITIALIZED
         dev = self.device
-        self.extract = feat_ops.make_extractor(int(wh[1]), int(wh[0]), orb_cfg,
-                                               K=self.K, D=self.D, device=dev)
+        self.extract = feat_ops.make_extractor(
+            int(wh[1]), int(wh[0]), orb_cfg,
+            K=self.K if self.cam_type == 0 else None, D=self.D, device=dev)
         self.match_init = kernels.init_matcher()
         self.two_view = kernels.two_view_kernel(sigma_n=1.0 / float(self.K[0]))
         self.pose_opt = kernels.pose_opt_kernel(cam_type=self.cam_type)
@@ -118,15 +133,17 @@ class Tracker:
         r_scale = 1.0 + 0.5 * (depth - 1)
         self.fused_track = kernels.fused_track_pooled(
             self.cam_type, orb_cfg.n_levels, orb_cfg.scale,
-            self._cam_key, self._wh_key, 0.0,
+            self._cam_key, self._wh_key, self.bf,
             float(self.p.motion_radius * r_scale), float(self.p.local_radius * r_scale),
             float(self.p.motion_ratio), float(self.p.local_ratio),
             int(self.p.th_high), device=dev)
         self.pose_opt_pooled = kernels.pose_opt_pooled(
-            self.cam_type, self._cam_key, 0.0, orb_cfg.n_levels, orb_cfg.scale,
+            self.cam_type, self._cam_key, self.bf, orb_cfg.n_levels, orb_cfg.scale,
             device=dev)
-        self._ur_dev = torch.full((orb_cfg.total_capacity,), -1.0,
-                                  dtype=torch.float32, device=dev)
+        # the right-x vector of a frame without one (monocular): all −1
+        self._no_ur = torch.full((orb_cfg.total_capacity,), -1.0,
+                                 dtype=torch.float32, device=dev)
+        self._sf_dev = None
 
         # bumped on whole-world transforms (the reference's IMU alignment):
         # a pipelined dispatch in flight across one is dropped at consume
@@ -232,8 +249,7 @@ class Tracker:
         fid = self.n_frames
         self.n_frames += 1
         with self.timer.stage("1.orb_extraction"):
-            img_t = torch.as_tensor(np.asarray(img, np.float32), device=self.device)
-            frame = build_frame(fid, ts, self.extract(img_t))
+            frame = build_frame(fid, ts, self.extract(self._upload(img)))
         with locked_current(self):
             if self.state == TrackState.NOT_INITIALIZED:
                 ok = self._monocular_init(frame)
@@ -259,8 +275,7 @@ class Tracker:
         fid = self.n_frames
         self.n_frames += 1
         with self.timer.stage("1.orb_extraction"):
-            img_t = torch.as_tensor(np.asarray(img, np.float32), device=self.device)
-            frame = build_frame(fid, ts, self.extract(img_t))
+            frame = build_frame(fid, ts, self.extract(self._upload(img)))
         return self._pipeline_step(frame, ts)
 
     def _pipeline_step(self, frame: Frame, ts: float) -> dict:
@@ -274,7 +289,8 @@ class Tracker:
         with locked_current(self):
             if self.state == TrackState.NOT_INITIALIZED:
                 info_prev = self.flush_pending() or info_prev
-                ok = self._monocular_init(frame)
+                self._ensure_stereo_host(frame)
+                ok = self._stereo_init(frame) if self.bf > 0 else self._monocular_init(frame)
                 self._log_trajectory(frame, tracked=ok)
                 self.last_frame = frame
                 return {"state": self.state.name, "init": ok}
@@ -287,6 +303,7 @@ class Tracker:
                         "state": self.state.name, "pending": True}
             # the staged path needs a fully consumed state: drain the pipeline
             info_prev = self.flush_pending() or info_prev
+            self._ensure_stereo_host(frame)
             with self.timer.stage("3.track_total"):
                 ok = self._track(frame, allow_fused=False)
             self._log_trajectory(frame, tracked=ok)
@@ -333,11 +350,282 @@ class Tracker:
                 self._post_track(frame, True)
             else:
                 frame.feat_mp[:] = -1
+                self._ensure_stereo_host(frame)
                 ok = self._track(frame, allow_fused=False)
             self._log_trajectory(frame, tracked=ok)
             self.last_frame = frame
             return {"state": self.state.name,
                     "inliers": frame.n_matched() if ok else 0}
+
+    # ------------------------------------------------------------------
+    # stereo, RGB-D and two-camera fisheye front ends
+    # ------------------------------------------------------------------
+    def _scale_factors_dev(self) -> torch.Tensor:
+        if self._sf_dev is None:
+            self._sf_dev = self._dev(self.map.scale_factors.astype(np.float32))
+        return self._sf_dev
+
+    def _upload(self, img) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(img, np.float32), device=self.device)
+
+    def _stereo_device(self, img_l, img_r):
+        """Both eyes' extraction, the row-constrained descriptor matching and
+        the SAD subpixel refinement, all on the device (the reference runs the
+        two extractions in two threads, then ComputeStereoMatches). Returns
+        (left features, ur, ok) as device tensors."""
+        with self.timer.stage("1.orb_extraction"):
+            il, ir = self._upload(img_l), self._upload(img_r)
+            fl = self.extract(il)
+            fr = self.extract(ir)
+        with self.timer.stage("2.stereo_match"):
+            ur, _, ok = stereo_ops.stereo_match(
+                fl.xy, fl.desc, fl.octave, fl.valid, fr.xy, fr.desc, fr.octave, fr.valid,
+                self._scale_factors_dev(), self.bf, 0.1)
+            # subpixel disparity (integer keypoints alone give z²/bf-level depth noise)
+            ur, ok = stereo_ops.subpixel_refine(il, ir, fl.xy, ur, ok)
+        return fl, ur, ok
+
+    def _process_stereo_pipelined(self, img_l, img_r, ts: float) -> dict:
+        fid = self.n_frames
+        self.n_frames += 1
+        fl, ur, ok = self._stereo_device(img_l, img_r)
+        disp = fl.xy[:, 0] - ur
+        frame = build_frame(fid, ts, fl)
+        # the right-x vector stays on the device for the fused step; its host
+        # mirror is read back only where host code needs depth
+        frame._ur_dev = torch.where(ok & (disp > 0.1), ur, -1.0)
+        return self._pipeline_step(frame, ts)
+
+    def process_stereo_frame(self, img_l: np.ndarray, img_r: np.ndarray,
+                             ts: float) -> dict:
+        """Stereo front end: extract both eyes, match along rows, then run the
+        common tracking path with depth available (reference GrabImageStereo +
+        the Frame stereo constructor). With ``TrackingParams.pipeline`` (and
+        no fisheye rig) it runs the software pipeline."""
+        if self.p.pipeline and self.rig is None:
+            return self._process_stereo_pipelined(img_l, img_r, ts)
+        self._timestamp_guard(ts)
+        fid = self.n_frames
+        self.n_frames += 1
+        fl, ur, ok = self._stereo_device(img_l, img_r)
+        frame = build_frame(fid, ts, fl)
+        with self.timer.stage("2.stereo_match"):
+            okn = ok.cpu().numpy()
+            urn = ur.cpu().numpy()
+            disp = frame.xy[:, 0] - urn
+            okn = okn & (disp > 0.1)
+            frame.ur = np.where(okn, urn, -1.0).astype(np.float32)
+            frame.depth = np.where(okn, self.bf / np.maximum(disp, 1e-6),
+                                   -1.0).astype(np.float32)
+        return self._track_with_depth(frame)
+
+    def _track_with_depth(self, frame: Frame, **info_extra) -> dict:
+        """Initialize from the frame's depths or track it (the stereo, RGB-D
+        and fisheye-rig front ends share this)."""
+        with locked_current(self):
+            if self.state == TrackState.NOT_INITIALIZED:
+                done = self._stereo_init(frame)
+                info = {"state": self.state.name, "init": done, **info_extra}
+            else:
+                with self.timer.stage("3.track_total"):
+                    done = self._track(frame)
+                info = {"state": self.state.name,
+                        "inliers": frame.n_matched() if done else 0}
+            self._log_trajectory(frame, tracked=done)
+        self.last_frame = frame
+        return info
+
+    def set_fisheye_rig(self, cam_r, R_rl, t_rl, lap_l=(0.0, 1e9), lap_r=(0.0, 1e9)):
+        """Configure a two-camera fisheye rig (reference Camera2.* + Tlr, the
+        lapping areas Camera.lappingBegin/End). Without a stereo ``bf`` the
+        rig's is ‖t_rl‖·fx; the pooled steps are rebuilt with it (their cache
+        is keyed by bf)."""
+        self.rig = {k: np.array(v, np.float32) for k, v in (
+            ("cam_r", cam_r), ("R_rl", R_rl), ("t_rl", t_rl), ("lap_l", lap_l),
+            ("lap_r", lap_r))}
+        if self.bf <= 0:
+            self.bf = float(np.linalg.norm(t_rl) * self.cam_params[0])
+        self.fused_track = kernels.fused_track_pooled(
+            self.cam_type, self.orb_cfg.n_levels, self.orb_cfg.scale,
+            self._cam_key, self._wh_key, float(self.bf),
+            float(self.p.motion_radius), float(self.p.local_radius),
+            float(self.p.motion_ratio), float(self.p.local_ratio),
+            int(self.p.th_high), device=self.device)
+        self.pose_opt_pooled = kernels.pose_opt_pooled(
+            self.cam_type, self._cam_key, float(self.bf),
+            self.orb_cfg.n_levels, self.orb_cfg.scale, device=self.device)
+
+    def process_fisheye_stereo_frame(self, img_l: np.ndarray, img_r: np.ndarray,
+                                     ts: float) -> dict:
+        """Two-camera fisheye front end (reference Frame two-camera
+        constructor + ComputeStereoFishEyeMatches): extract both eyes, match
+        in the lapping areas, triangulate through the KB8 models. The depth
+        drives the close-point machinery; there is no rectified right
+        coordinate, so the right eye's pixel of each match is kept for BA's
+        second-camera rows, which hold the metric scale."""
+        if self.rig is None:
+            raise RuntimeError("call set_fisheye_rig first")
+        self._timestamp_guard(ts)
+        fid = self.n_frames
+        self.n_frames += 1
+        with self.timer.stage("1.orb_extraction"):
+            fl = self.extract(self._upload(img_l))
+            fr = self.extract(self._upload(img_r))
+        frame = build_frame(fid, ts, fl)
+        rig = self.rig
+        with self.timer.stage("2.stereo_match"):
+            idx, ok, z, _ = stereo_ops.fisheye_stereo_match(
+                fl.xy, fl.desc, fl.octave, fl.valid, fr.xy, fr.desc, fr.octave, fr.valid,
+                self._dev(self.cam_params), self._dev(rig["cam_r"]), self._dev(rig["R_rl"]),
+                self._dev(rig["t_rl"]), self._dev(rig["lap_l"]), self._dev(rig["lap_r"]),
+                self._dev(self.map.level_sigma2.astype(np.float32)), 0.7, 50)
+            okn = ok.cpu().numpy()
+            idxn = idx.cpu().numpy()
+            frame.depth = np.where(okn, z.cpu().numpy(), -1.0).astype(np.float32)
+            xy_r = fr.xy.cpu().numpy()
+            frame.uvr = np.where(okn[:, None], xy_r[idxn], -1.0).astype(np.float32)
+        return self._track_with_depth(frame, n_stereo=int(okn.sum()))
+
+    def process_rgbd_frame(self, img: np.ndarray, depth_map: np.ndarray,
+                           ts: float) -> dict:
+        """RGB-D front end: the depth sampled at each keypoint becomes a
+        virtual right coordinate ur = u − bf/z (reference
+        ComputeStereoFromRGBD). Sampled on the host, as the JAX package does."""
+        self._timestamp_guard(ts)
+        fid = self.n_frames
+        self.n_frames += 1
+        with self.timer.stage("1.orb_extraction"):
+            frame = build_frame(fid, ts, self.extract(self._upload(img)))
+        xi = np.clip(np.round(frame.xy[:, 0]).astype(int), 0, depth_map.shape[1] - 1)
+        yi = np.clip(np.round(frame.xy[:, 1]).astype(int), 0, depth_map.shape[0] - 1)
+        z = depth_map[yi, xi].astype(np.float32)
+        ok = frame.valid & (z > 0)
+        frame.depth = np.where(ok, z, -1.0).astype(np.float32)
+        frame.ur = np.where(ok, frame.xy[:, 0] - self.bf / np.maximum(z, 1e-6),
+                            -1.0).astype(np.float32)
+        return self._track_with_depth(frame)
+
+    def _frame_ur_dev(self, frame: Frame) -> torch.Tensor:
+        """The frame's right-x vector on the device for the pooled steps: the
+        pipelined stereo front end's (never read back for this), an upload of
+        the host mirror, or the all −1 vector of a monocular rig."""
+        ur_dev = getattr(frame, "_ur_dev", None)
+        if ur_dev is not None:
+            return ur_dev
+        if self.bf <= 0:
+            return self._no_ur
+        return self._dev(frame.ur)
+
+    def _stage_ur_host(self, frame: Frame, ready=None) -> None:
+        """Start a pipelined stereo frame's device ur on its way to pinned host
+        memory: a non-blocking copy followed by ``ready`` (or a new event) on
+        the tracker's stream. Nothing waits here."""
+        ur_dev = getattr(frame, "_ur_dev", None)
+        if ur_dev is None or getattr(frame, "_ur_host", None) is not None:
+            return
+        if not ur_dev.is_cuda:
+            frame._ur_host = (ur_dev, None)
+            return
+        host = torch.empty(ur_dev.shape, dtype=ur_dev.dtype, pin_memory=True)
+        host.copy_(ur_dev, non_blocking=True)
+        if ready is None:
+            ready = torch.cuda.Event()
+            ready.record()
+        frame._ur_host = (host, ready)
+
+    def _ensure_stereo_host(self, frame: Frame) -> None:
+        """Materialize the host ur/depth of a pipelined stereo frame (kept on
+        the device for the fused step; stereo init, keyframe creation's
+        close-point spawning and the staged fallback need the numpy mirrors).
+        Waits on the frame's own read-back event, never on the device."""
+        if getattr(frame, "_ur_dev", None) is None:
+            return
+        self._stage_ur_host(frame)
+        host, ready = frame._ur_host
+        if ready is not None:
+            ready.synchronize()
+        urn = host.numpy().copy()
+        disp = frame.xy[:, 0] - urn
+        okn = (urn >= 0) & (disp > 0.1)
+        frame.ur = np.where(okn, urn, -1.0).astype(np.float32)
+        frame.depth = np.where(okn, self.bf / np.maximum(disp, 1e-6), -1.0).astype(np.float32)
+        frame._ur_dev = None
+        frame._ur_host = None
+
+    def _stereo_init(self, frame: Frame) -> bool:
+        """Instant map from one frame's depths (reference
+        StereoInitialization: > 500 keypoints, a point per valid depth; at
+        least 50 depths guard a degenerate start). Hands no keyframe to the
+        mapper, as the JAX package does."""
+        if frame.n_valid < 500:
+            return False
+        m = self.map
+        frame.R = np.eye(3, dtype=np.float32)
+        frame.t = np.zeros(3, np.float32)
+        k0 = m.add_keyframe(frame.R, frame.t, frame.ts, frame.frame_id,
+                            frame.xy, frame.angle, frame.octave, frame.desc,
+                            frame.valid, ur=frame.ur, depth=frame.depth, uvr=frame.uvr)
+        sel = np.nonzero(frame.valid & (frame.depth > 0))[0]
+        if len(sel) < 50:
+            m.kf_valid[k0] = False
+            m.n_kf -= 1
+            return False
+        z = frame.depth[sel]
+        xyz = (self._backproject(frame.xy[sel]) * z[:, None]).astype(np.float32)
+        dist = np.linalg.norm(xyz, axis=1)
+        normals = xyz / np.maximum(dist[:, None], 1e-9)
+        sf = m.scale_factors
+        maxd = dist * sf[frame.octave[sel]]
+        mind = maxd / sf[-1]
+        ids = m.add_map_points(xyz, frame.desc[sel], k0, normals, mind, maxd, first_kf=k0)
+        m.kf_feat_mp[k0, sel] = ids
+        m.mp_visible[ids] = 1
+        m.mp_found[ids] = 1
+        frame.feat_mp = m.kf_feat_mp[k0].copy()
+        self.ref_kf = k0
+        self.last_kf_frame_id = frame.frame_id
+        self._last_kf_ts = frame.ts
+        self.velocity = None
+        self.state = TrackState.OK
+        frame.tracked = True
+        return True
+
+    def _backproject(self, xy: np.ndarray) -> np.ndarray:
+        """Pixels → unit-z rays through the camera model (pinhole or KB8)."""
+        return cam_ops.unproject(self.cam_type, self._dev(self.cam_params),
+                                 self._dev(np.asarray(xy, np.float32))).cpu().numpy()
+
+    def _spawn_close_points(self, frame: Frame, kf_id: int, max_new: int = 100):
+        """Close-depth point spawning at keyframe creation (reference
+        CreateNewKeyFrame: unmatched features sorted by depth, points up to
+        ThDepth or at least the 100 closest)."""
+        m = self.map
+        sel = np.nonzero(frame.valid & (frame.depth > 0) & (frame.feat_mp < 0))[0]
+        if len(sel) == 0:
+            return
+        order = sel[np.argsort(frame.depth[sel])]
+        close = order[frame.depth[order] < self.th_depth]
+        if len(close) < max_new:
+            close = order[:max_new]
+        if len(close) == 0:
+            return
+        z = frame.depth[close]
+        Rwc = frame.R.T
+        c = -Rwc @ frame.t
+        xc = self._backproject(frame.xy[close]) * z[:, None]
+        xyz = (xc @ Rwc.T + c).astype(np.float32)
+        dirs = xyz - c
+        dist = np.linalg.norm(dirs, axis=1)
+        normals = dirs / np.maximum(dist[:, None], 1e-9)
+        sf = m.scale_factors
+        maxd = dist * sf[frame.octave[close]]
+        mind = maxd / sf[-1]
+        ids = m.add_map_points(xyz, frame.desc[close], kf_id, normals, mind, maxd,
+                               first_kf=kf_id)
+        m.kf_feat_mp[kf_id, close] = ids
+        m.mp_visible[ids] = 1
+        m.mp_found[ids] = 1
+        frame.feat_mp[close] = ids
 
     # ------------------------------------------------------------------
     # initialization
@@ -359,9 +647,14 @@ class Tracker:
         if okn.sum() < p.min_init_matches:
             self.init_frame = frame
             return False
-        fx, fy, cx, cy = self.K[:4]
-        x1 = (f0.xy - [cx, cy]) / [fx, fy]
-        x2 = (f1.xy[idxn] - [cx, cy]) / [fx, fy]
+        if self.cam_type == 0:
+            fx, fy, cx, cy = self.K[:4]
+            x1 = (f0.xy - [cx, cy]) / [fx, fy]
+            x2 = (f1.xy[idxn] - [cx, cy]) / [fx, fy]
+        else:
+            # fisheye: normalized coordinates through the camera model
+            x1 = self._backproject(f0.xy)[:, :2]
+            x2 = self._backproject(f1.xy[idxn])[:, :2]
         rand_sets = self._rand_sets(np.nonzero(okn)[0], iters=200, k=8)
         res = self.two_view(self._dev(x1, torch.float32), self._dev(x2, torch.float32),
                             self._dev(okn), self._dev(rand_sets))
@@ -728,7 +1021,8 @@ class Tracker:
                 self._dev(frame.R), self._dev(frame.t), self._dev(pts), dev.xy,
                 self._dev(self.inv_sigma2[frame.octave].astype(np.float32)),
                 self._dev(matched) & dev.valid, self._dev(self.cam_params),
-                obs_ur=self._ur_dev, bf=0.0, prior_R=self._dev(np.asarray(pR, np.float32)),
+                obs_ur=self._dev(frame.ur), bf=self.bf,
+                prior_R=self._dev(np.asarray(pR, np.float32)),
                 prior_t=self._dev(np.asarray(pt, np.float32)), prior_eps=float(eps))
             frame.R = res.R.cpu().numpy()
             frame.t = res.t.cpu().numpy()
@@ -745,7 +1039,7 @@ class Tracker:
         dev = frame.dev
         out = self.pose_opt_pooled(
             self._dev(pose_in), self._dev(frame.feat_mp), mpf,
-            dev.xy, dev.octave, dev.valid, self._ur_dev).cpu().numpy()
+            dev.xy, dev.octave, dev.valid, self._frame_ur_dev(frame)).cpu().numpy()
         Rn = out[0:9].view(np.float32).reshape(3, 3).copy()
         tn = out[9:12].view(np.float32).copy()
         if not (np.isfinite(Rn).all() and np.isfinite(tn).all()):
@@ -808,15 +1102,17 @@ class Tracker:
         pose_in[24] = p.pose_prior_eps if use_prior else 0.0
         out_dev = self.fused_track(
             self._dev(pose_in), self._dev(ids_packed), mpf, mpu,
-            dev.xy, dev.desc, dev.octave, dev.valid, self._ur_dev, cl=cap_l)
-        # start the packed result on its way to the host: a non-blocking copy
-        # into pinned memory and an event behind it. Consuming waits on that
-        # event alone, not on whatever else the device has queued.
+            dev.xy, dev.desc, dev.octave, dev.valid, self._frame_ur_dev(frame), cl=cap_l)
+        # start the packed result (and a pipelined stereo frame's ur, which
+        # the keyframe policy reads) on its way to the host: non-blocking
+        # copies into pinned memory and one event behind them. Consuming
+        # waits on that event alone, not on whatever else the device has queued.
         ready = None
         if out_dev.is_cuda:
             host = torch.empty(out_dev.shape, dtype=out_dev.dtype, pin_memory=True)
             host.copy_(out_dev, non_blocking=True)
             ready = torch.cuda.Event()
+            self._stage_ur_host(frame, ready)
             ready.record()
             out_dev = host
         return {"frame": frame, "out": out_dev, "ready": ready, "ids": ids_packed,
@@ -965,9 +1261,10 @@ class Tracker:
     # keyframe policy
     # ------------------------------------------------------------------
     def _need_new_keyframe(self, frame: Frame) -> bool:
-        """Reference NeedNewKeyFrame for a monocular visual rig: the
-        c1a/c1b/c2 conditions, the reloc guard, or the fixed-interval cadence
-        of ``kf_interval_override``."""
+        """Reference NeedNewKeyFrame for a visual rig: the c1a/c1b/c1c/c2
+        conditions with the close-point triggers of a rig with depth, the
+        reloc guard, or the fixed-interval cadence of
+        ``kf_interval_override``."""
         p = self.p
         m = self.map
         if self.ref_kf < 0:
@@ -998,20 +1295,39 @@ class Tracker:
             ref_mps = ref_mps[m.obs_count(ref_mps) >= min_obs]
         n_ref = max(len(ref_mps), 1)
         n_tracked = getattr(self, "n_local_inliers", frame.n_matched())
-        th_ref = 0.4 if n_kfs < 2 else p.ref_ratio
         idle = self.mapper_accepting is None or self.mapper_accepting()
+        # close-point triggers (stereo / RGB-D)
+        is_mono = self.bf <= 0
+        need_close = False
+        if not is_mono and self.th_depth > 0:
+            self._ensure_stereo_host(frame)      # pipelined stereo: depth is lazy
+            close = (frame.depth > 0) & (frame.depth < self.th_depth)
+            n_tracked_close = int((close & (frame.feat_mp >= 0)).sum())
+            n_untracked_close = int((close & (frame.feat_mp < 0)).sum())
+            need_close = (n_tracked_close < 100) and (n_untracked_close > 70)
+        th_ref = 0.75
+        if n_kfs < 2:
+            th_ref = 0.4
+        elif is_mono:
+            th_ref = p.ref_ratio
         c1a = frame.frame_id >= self.last_kf_frame_id + p.max_frames_between_kf
         c1b = frame.frame_id >= self.last_kf_frame_id + p.min_frames_between_kf and idle
-        c2 = (n_tracked < th_ref * n_ref) and n_tracked > 15
-        # a busy mapper never gets a monocular keyframe queued on top
-        return bool((c1a or c1b) and c2 and idle)
+        c1c = not is_mono and (n_tracked < 0.25 * n_ref or need_close)
+        c2 = (n_tracked < th_ref * n_ref or need_close) and n_tracked > 15
+        # a busy mapper gets no keyframe queued on top (the < 3 queue gate of
+        # a rig with depth lives in mapper_accepting)
+        return bool((c1a or c1b or c1c) and c2 and idle)
 
     def _create_new_keyframe(self, frame: Frame):
         m = self.map
+        self._ensure_stereo_host(frame)
         k = m.add_keyframe(frame.R, frame.t, frame.ts, frame.frame_id,
                            frame.xy, frame.angle, frame.octave, frame.desc,
                            frame.valid, feat_mp=frame.feat_mp.copy(),
                            ur=frame.ur, depth=frame.depth, uvr=frame.uvr)
+        if self.bf > 0:
+            self._spawn_close_points(frame, k)
+            m.kf_feat_mp[k] = frame.feat_mp
         self.ref_kf = k
         self.last_kf_frame_id = frame.frame_id
         self._last_kf_ts = frame.ts

@@ -1,7 +1,10 @@
 """Bundle adjustment: Levenberg-Marquardt with block-sparse Schur complement.
 
-Port of ``orbslam3_tpu/ops/ba.py`` (monocular and stereo rows; the two-camera
-rig rows are not ported yet). The problem is SoA tensors with validity masks:
+Port of ``orbslam3_tpu/ops/ba.py``: monocular rows, the stereo right-column
+row u_R = u − bf/z, and the two-camera rig's second-camera rows (the
+reference's EdgeSE3ProjectXYZToBody: the point seen by the second camera at
+T_rl ∘ T_kf, projected with its own intrinsics, the se3 Jacobian chained
+through R_rl). The problem is SoA tensors with validity masks:
 K poses, P landmarks, O observations. Each LM step scatter-adds the
 per-observation blocks into Hpp (K,6,6), Hll (P,3,3) and the cross tensor
 B (P,K,6,3), forms the reduced camera system S = Hpp − Σ_p B_p Hll_p⁻¹ B_pᵀ
@@ -37,6 +40,11 @@ class BAProblem(NamedTuple):
     fixed_pose: torch.Tensor     # (K,) bool
     obs_ur: torch.Tensor = None  # (O,) right-image u; <0 ⇒ mono observation
     bf: float = 0.0              # baseline*fx
+    # two-camera rigs: rows with obs_cam == 1 are seen by the second camera
+    obs_cam: torch.Tensor = None      # (O,) int 0 = primary, 1 = second camera
+    cam_params2: torch.Tensor = None  # second camera intrinsics
+    R_rl: torch.Tensor = None         # (3,3) right←left rig rotation
+    t_rl: torch.Tensor = None         # (3,)
 
 
 class BAResult(NamedTuple):
@@ -83,10 +91,22 @@ def _linearize(p: BAProblem, pts, R, t, w_mask, cam_type, cam_params, huber):
     xc = (Rk @ pts[p.obs_mp.long()][..., None])[..., 0] + t[kf]
     eye = torch.eye(3, dtype=xc.dtype, device=xc.device).expand(xc.shape[:-1] + (3, 3))
     Jse3 = torch.cat([-lie.hat(xc), eye], dim=-1)                     # (O,3,6)
+    if p.obs_cam is not None:
+        # the se3 perturbation acts on the primary camera: chain the second
+        # camera's rows through the rig transform
+        is2 = (p.obs_cam == 1)[:, None]
+        xc = torch.where(is2, xc @ p.R_rl.T + p.t_rl, xc)
+        Jse3 = torch.where(is2[..., None], p.R_rl @ Jse3, Jse3)
+        Rk = torch.where(is2[..., None], p.R_rl @ Rk, Rk)
     pos = xc[..., 2] > 1e-3
     xc = torch.cat([xc[..., :2], torch.clamp(xc[..., 2:3], min=1e-2)], dim=-1)
     pred = cam_ops.project(cam_type, cam_params, xc)
     Jproj = cam_ops.project_jac(cam_type, cam_params, xc)             # (O,2,3)
+    if p.obs_cam is not None:
+        is2 = p.obs_cam == 1
+        pred = torch.where(is2[:, None], cam_ops.project(cam_type, p.cam_params2, xc), pred)
+        Jproj = torch.where(is2[:, None, None],
+                            cam_ops.project_jac(cam_type, p.cam_params2, xc), Jproj)
     r_uv = p.obs_uv - pred
 
     obs_ur = _obs_ur(p)

@@ -108,43 +108,34 @@ def _sort_desc(x: torch.Tensor, k: int):
 # FAST
 # ---------------------------------------------------------------------------
 
-def _contiguous9(bits: torch.Tensor) -> torch.Tensor:
-    """True where a 16-bit ring mask (int32 lane) has >=9 contiguous set bits
-    cyclically. Arithmetic shifts, as ``>>`` on int32 in JAX."""
-    b = bits | (bits << 16)
-    y = b & (b >> 1)
-    y = y & (y >> 2)
-    y = y & (y >> 4)
-    y = y & (y >> 1)
-    return (y & 0xFFFF) != 0
-
-
 def fast_response(img: torch.Tensor, th_hi: float, th_lo: float):
-    """FAST-9/16 masks at two thresholds + OpenCV arc score. img: (H,W) f32."""
-    ring = torch.stack([torch.roll(img, shifts=(-int(dy), -int(dx)), dims=(0, 1))
+    """FAST-9/16 masks at two thresholds + OpenCV arc score. img: (H,W) f32.
+
+    A pixel is a corner at threshold th where some cyclic run of 9 ring
+    pixels is brighter than it by more than th (or darker by more than th):
+    exactly where the best run's least difference, the arc score plus one,
+    exceeds th. So both masks come from the score, as the ring's bit masks
+    would give them."""
+    h, w = img.shape
+    # ring[k][y, x] = img[(y + dy) mod h, (x + dx) mod w]: slices of one
+    # circular pad (the radius is 3), the values 16 rolls of the image give
+    pad = F.pad(img[None, None], (3, 3, 3, 3), mode="circular")[0, 0]
+    ring = torch.stack([pad[3 + int(dy):3 + int(dy) + h, 3 + int(dx):3 + int(dx) + w]
                         for dx, dy in _RING])
     diff = ring - img[None]
-    w = torch.as_tensor((1 << np.arange(16)).astype(np.int32),
-                        device=img.device)[:, None, None]
-
-    def masks(th):
-        bbits = torch.sum((diff > th).to(torch.int32) * w, dim=0, dtype=torch.int32)
-        dbits = torch.sum((diff < -th).to(torch.int32) * w, dim=0, dtype=torch.int32)
-        return _contiguous9(bbits) | _contiguous9(dbits)
-
-    corner_hi = masks(float(th_hi))
-    corner_lo = masks(float(th_lo))
 
     def arc9_min(d):
-        m1 = torch.minimum(d, torch.roll(d, -1, 0))
-        m2 = torch.minimum(m1, torch.roll(m1, -2, 0))
-        m4 = torch.minimum(m2, torch.roll(m2, -4, 0))
-        return torch.minimum(m4, torch.roll(d, -8, 0))
+        # min over each cyclic run of 9 ring entries: run i is e[i..i+8]
+        e = torch.cat([d, d[:8]])
+        m = torch.minimum(e[:-1], e[1:])          # e[j..j+1]
+        m = torch.minimum(m[:-2], m[2:])          # e[j..j+3]
+        m = torch.minimum(m[:-4], m[4:])          # e[j..j+7]
+        return torch.minimum(m[:16], e[8:])
 
     bright = torch.amax(arc9_min(diff), dim=0)
     dark = torch.amax(arc9_min(-diff), dim=0)
-    score = torch.maximum(bright, dark) - 1.0
-    return corner_hi, corner_lo, score
+    best = torch.maximum(bright, dark)
+    return best > float(th_hi), best > float(th_lo), best - 1.0
 
 
 def _cell_any(mask: torch.Tensor, cell: int) -> torch.Tensor:

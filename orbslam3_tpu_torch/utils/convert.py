@@ -5,7 +5,7 @@ arrays of a reference ``MapState`` (``vars(m)``), the way weight conversion
 hands one model to two implementations; ``loop_closer_state_from`` does the
 same for a loop closer's keyframe database and loop state; ``config_from``
 converts the config dataclasses, whose field names and defaults the port
-keeps.
+keeps; ``rig_from`` converts a two-camera fisheye rig.
 """
 from __future__ import annotations
 
@@ -21,6 +21,19 @@ def config_from(obj, cls):
     ``TrackingParams``) to the port's class of the same fields."""
     names = {f.name for f in dataclasses.fields(cls)}
     return cls(**{k: v for k, v in dataclasses.asdict(obj).items() if k in names})
+
+
+RIG_KEYS = ("cam_r", "R_rl", "t_rl", "lap_l", "lap_r")
+
+
+def rig_from(rig: dict) -> dict:
+    """The port's two-camera rig (``Tracker.rig`` / ``LocalMapper.rig``) from
+    a reference rig dict: the second camera's KB8 parameters, the right←left
+    extrinsics and the two lapping intervals, as float32 numpy copies."""
+    missing = [k for k in RIG_KEYS if k not in rig]
+    if missing:
+        raise KeyError(f"rig lacks {missing}")
+    return {k: np.array(rig[k], np.float32, copy=True) for k in RIG_KEYS}
 
 
 def map_state_from_arrays(arrays: dict, cfg) -> MapState:

@@ -1,14 +1,15 @@
 """Reference runs of chip_smoke.py's system phases, the JAX package against the port.
 
     python3 scripts/reference_walks.py --package jax|torch
-        --phase slice|headline|loop|merge|drifted
+        --phase slice|headline|loop|merge|drifted|stereo|rgbd|fisheye|stereo-merge
         [--frames N] [--mapping sync|async] [--pipeline 0|1] [--loop-closing 0|1]
         [--width full|test] [--device cpu|cuda] [--repeat N] [--stop-after N]
-        [--record FILE]
+        [--record FILE] [--deterministic]
     python3 scripts/reference_walks.py --compare JAX_FILE TORCH_FILE
 
 Drives the very functions chip_smoke.py drives on the GPU (``run_walk``,
-``run_reloc``, ``run_loop_walk``, ``run_merge``, ``run_drifted_loop``) with the
+``run_reloc``, ``run_loop_walk``, ``run_merge``, ``run_drifted_loop``,
+``run_fisheye``, ``run_stereo_merge``) with the
 JAX package ``orbslam3_tpu`` on the CPU or with the port (on the CPU, or on
 the card with ``--device cuda``), at the same full-size configuration
 (752x480, 1024 features):
@@ -34,7 +35,20 @@ the card with ``--device cuda``), at the same full-size configuration
   walk's start again, which must merge the new map back;
 - ``drifted``: ``run_drifted_loop``: the drifted 752x480 map in a
   1024-feature pool through a loop closer with the scale fixed (the full-width
-  loop check).
+  loop check);
+- ``stereo``: bench.py's stereo rig without the IMU on the walk's first 40
+  frames (right eye at baseline 0.11, bf = 0.11·fx, th_depth = 40, loop
+  closing on), sync mapping and the pipeline unless ``--mapping`` /
+  ``--pipeline`` say otherwise (chip_smoke.py runs it async);
+- ``rgbd``: the walk's first 20 frames with the renderer's depth, sync;
+- ``fisheye``: tests/test_e2e_fisheye.py's two-camera rig and monocular KB8
+  orbits (512x512, their first 16 frames) with 1500 features, loop closing on;
+- ``stereo-merge``: tests/test_atlas.py's stereo merge found by the keyframe
+  database's query.
+
+``--deterministic`` turns PyTorch's deterministic algorithms on for the port
+(no atomics with a free summation order; an operator without a deterministic
+form is named in a warning), so that a card run repeats.
 
 ``--compare`` lines two ``--record`` files up: frame by frame (state,
 inliers, keyframes made), then query by query (keyframes made from the same
@@ -172,10 +186,63 @@ def compare(a: dict, b: dict) -> None:
               f"{qa[kf]['candidates']} / {qb[kf]['candidates']}")
 
 
+def sensor_phase(cs, opt, kw, mapping, pipeline, lc, name, where) -> dict:
+    """The stereo, RGB-D, fisheye and stereo-merge phases on one package;
+    prints one line per run and returns their records."""
+    workers = min(8, os.cpu_count() or 1)
+    if opt.phase in ("stereo", "rgbd"):
+        n = opt.frames or (cs.STEREO_FRAMES if opt.phase == "stereo" else cs.RGBD_FRAMES)
+        walk_kw = dict(seed=1, n_clutter=4)
+        scene = cs.RoomScene(**walk_kw)
+        poses = cs.walk_trajectory(n, period=280)
+        depth = opt.phase == "rgbd"
+        jobs = [("walk", walk_kw, p, depth) for p in poses]
+        if not depth:
+            jobs += [("walk", walk_kw, scene.stereo_pose(R, t, cs.STEREO_BASELINE), False)
+                     for (R, t) in poses]
+        views = cs.render_jobs(jobs, workers)
+        if depth:
+            imgs, extra = [v[0] for v in views], dict(depths=[v[1] for v in views],
+                                                      th_depth=cs.STEREO_BASELINE * 40)
+        else:
+            imgs, extra = views[:n], dict(right=views[n:], th_depth=cs.STEREO_TH_DEPTH)
+        slam, rec = cs.run_walk(scene, poses, imgs, n, mapping, pipeline,
+                                enable_loop_closing=lc, bf=cs.STEREO_BASELINE * scene.fx,
+                                **extra, **kw)
+        slam.shutdown(print_times=False)
+        print(cs.walk_line(name, n, rec))
+        return {"walk": rec}
+    # the fisheye and merge views, without the walk's (any scene serves
+    # stereo_pose, a function of the pose alone)
+    jobs = cs.sensor_jobs(cs.RoomScene(**cs.stereo_merge_scene()[0]), None, [])
+    if opt.phase == "fisheye":
+        views = cs.render_jobs([j for j in jobs if j[0].startswith("fisheye")], workers)
+        it = iter(views)
+        out = {}
+        for kind, _, poses in cs.fisheye_scenes():
+            if kind == "fisheye_rig":
+                pairs = [(next(it), next(it)) for _ in poses]
+                imgs, imgs_r = [a for a, _ in pairs], [b for _, b in pairs]
+            else:
+                imgs, imgs_r = [next(it) for _ in poses], None
+            slam, rec = cs.run_fisheye(kind, imgs, imgs_r, enable_loop_closing=lc, **kw)
+            slam.shutdown(print_times=False)
+            print(f"{opt.package} on {where}, {kind}: {json.dumps(rec)}")
+            out[kind] = rec
+        return out
+    views = cs.render_jobs([j for j in jobs if j[0] == "stereo_merge"], workers)
+    merge_views = list(zip(views[0::2], views[1::2]))
+    slam, rec = cs.run_stereo_merge(merge_views, **kw)
+    slam.shutdown(print_times=False)
+    print(f"{opt.package} on {where}, stereo merge: {json.dumps(rec)}")
+    return {"stereo_merge": rec}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--package", choices=("jax", "torch"))
-    ap.add_argument("--phase", choices=("slice", "headline", "loop", "merge", "drifted"))
+    ap.add_argument("--phase", choices=("slice", "headline", "loop", "merge", "drifted",
+                                        "stereo", "rgbd", "fisheye", "stereo-merge"))
     ap.add_argument("--frames", type=int, default=0, help="0: the phase's own length")
     ap.add_argument("--mapping", choices=("sync", "async"), default=None)
     ap.add_argument("--pipeline", type=int, choices=(0, 1), default=None)
@@ -192,6 +259,8 @@ def main():
     ap.add_argument("--record", help="loop phase: write frames and loop queries here")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"), help="two --record files")
     ap.add_argument("--threads", type=int, default=4, help="torch CPU threads")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="torch.use_deterministic_algorithms(True) for the port")
     opt = ap.parse_args()
     if opt.compare:
         with open(opt.compare[0]) as fa, open(opt.compare[1]) as fb:
@@ -203,13 +272,19 @@ def main():
         ap.error("--record takes one run")
     import torch
     torch.set_num_threads(opt.threads)
+    if opt.deterministic:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        # warn_only: an operator without a deterministic form warns (and is
+        # named in the output) instead of stopping the run
+        torch.use_deterministic_algorithms(True, warn_only=True)
     import chip_smoke as cs
     kw = jax_classes() if opt.package == "jax" else {"device": opt.device}
     where = "the CPU" if opt.package == "jax" or opt.device == "cpu" else "the card"
     if where == "the card":
         print(cs.card_line())
     mapping = opt.mapping or ("async" if opt.phase == "headline" else "sync")
-    pipeline = bool(opt.phase == "headline" if opt.pipeline is None else opt.pipeline)
+    pipeline = bool(opt.phase in ("headline", "stereo") if opt.pipeline is None
+                    else opt.pipeline)
     lc = bool(opt.phase != "slice" if opt.loop_closing is None else opt.loop_closing)
     out = {"package": opt.package, "phase": opt.phase, "device": opt.device,
            "mapping": mapping, "pipeline": pipeline, "loop_closing": lc}
@@ -226,6 +301,10 @@ def main():
             rec = cs.run_drifted_loop(device=opt.device)
         print(f"{opt.package} on {where}, drifted: {json.dumps(rec)}")
         print(json.dumps(dict(out, drifted=rec)))
+        return
+    if opt.phase in ("stereo", "rgbd", "fisheye", "stereo-merge"):
+        out.update(sensor_phase(cs, opt, kw, mapping, pipeline, lc, name, where))
+        print(json.dumps(out))
         return
     if opt.phase == "slice":
         n = opt.frames or cs.SLICE_FRAMES

@@ -114,8 +114,7 @@ def test_loop_closer_matches_reference(runs):
         assert t["stats"][key] == 0, (key, t["stats"].get("last_" + key[:-1]))
 
 
-@pytest.mark.parametrize("kw", [dict(th_depth=35.0),
-                                dict(bf=40.0), dict(cam_type=1), dict(use_viewer=True),
+@pytest.mark.parametrize("kw", [dict(use_viewer=True),
                                 dict(tracking_params=TrackingParams(pose_starts=2))])
 def test_unported_options_raise(kw):
     """Options outside the port so far name their ROADMAP item instead of

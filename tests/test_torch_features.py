@@ -56,6 +56,28 @@ def test_pyramid_levels(image):
         np.testing.assert_allclose(got, ref[lvl], rtol=0, atol=2e-5 * 255, err_msg=f"level {lvl}")
 
 
+@pytest.mark.parametrize("kind", ["noise", "steps", "flat"])
+def test_fast_response_exact(kind):
+    """FAST's two corner masks and arc score, bit-equal to JAX's ring bit
+    masks on seeded images whose ring differences often equal a threshold
+    (integer noise; steps of 60 against thresholds 60 and 0; a flat image),
+    down to a 7x9 level, where the ring wraps around the border."""
+    rng = np.random.default_rng(11)
+    for h, w in ((120, 188), (7, 9)):
+        if kind == "noise":
+            img = rng.integers(0, 256, (h, w)).astype(np.float32)
+        elif kind == "steps":
+            img = np.round(rng.random((h, w)) * 4).astype(np.float32) * 60
+        else:
+            img = np.full((h, w), 9.0, np.float32)
+        for th_hi, th_lo in ((20.0, 7.0), (60.0, 0.0)):
+            got = tf.fast_response(T(img), th_hi, th_lo)
+            ref = jax.jit(lambda im: jf.fast_response(im, th_hi, th_lo))(J(img))
+            for g, r in zip(got, ref):
+                np.testing.assert_array_equal(N(g), N(r), err_msg=f"{h}x{w} {th_hi}/{th_lo}")
+            np.testing.assert_array_equal(N(got[2]).view(np.int32), N(ref[2]).view(np.int32))
+
+
 @pytest.mark.parametrize("lvl", [0, 2, 5])
 def test_level_detection_angle_descriptor(image, lvl):
     """Same level image: keypoints, scores and validity exact; IC angle to

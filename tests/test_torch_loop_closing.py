@@ -188,13 +188,32 @@ def test_fuse_into_parity(fixed):
     assert mt.mp_valid.sum() < src.mp_valid.sum()          # duplicates merged
 
 
-def _two_map_system(pkg):
+def _add_right_column(m, bf):
+    """Give every observation of ``m`` a stereo right coordinate u − bf/z and
+    depth z at the keyframe's pose (the rows a rig with depth adds to BA)."""
+    for k in np.nonzero(m.kf_valid[: m.n_kf])[0]:
+        fm = m.kf_feat_mp[k]
+        sel = fm >= 0
+        z = (m.mp_xyz[fm[sel]] @ m.kf_R[k].T + m.kf_t[k])[:, 2]
+        m.kf_feat_ur[k, sel] = (m.kf_feat_xy[k, sel, 0] - bf / z).astype(np.float32)
+        m.kf_feat_depth[k, sel] = z.astype(np.float32)
+
+
+def _two_map_system(pkg, rig="mono"):
     """A system whose Atlas holds the drifted map (stored) and a current map
     made of its keyframes 0-5 in a world moved by a known similarity, with a
-    logged trajectory on the current map's keyframes."""
+    logged trajectory on the current map's keyframes. ``rig="stereo"``: both
+    maps carry a right column (bf = 0.11·fx), the system is a stereo one
+    (fixed-scale loop closer, stereo rows in the weld BA) and the similarity
+    is rigid, as a fixed-scale verification gives it."""
     mod = jmap if pkg == "jax" else tmap
     old, _, _, _ = build_drifted_map(mod)
-    s, R = 1.3, np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], np.float32)
+    stereo = rig == "stereo"
+    bf = float(0.11 * K_CAM[0]) if stereo else 0.0
+    if stereo:
+        _add_right_column(old, bf)
+    s = 1.0 if stereo else 1.3
+    R = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], np.float32)
     t = np.array([0.5, -0.2, 1.0], np.float32)
     cur = mod.MapState(old.cfg, map_id=1)
     kfs = list(range(6))
@@ -212,12 +231,13 @@ def _two_map_system(pkg):
         tk = (s * old.kf_t[k] - Rk @ t).astype(np.float32)
         cur.add_keyframe(Rk, tk, 100.0 + k, 100 + k, old.kf_feat_xy[k], old.kf_feat_angle[k],
                          old.kf_feat_octave[k], old.kf_feat_desc[k], old.kf_feat_valid[k],
-                         feat_mp=fm_new)
+                         feat_mp=fm_new, ur=old.kf_feat_ur[k], depth=old.kf_feat_depth[k])
     cur.refresh_map_points(new_ids)
+    kw = dict(bf=bf, th_depth=0.11 * 40) if stereo else {}
     if pkg == "jax":
-        sysm = JSlam(K_CAM, None, WH, n_features=512, seed=0)
+        sysm = JSlam(K_CAM, None, WH, n_features=512, seed=0, **kw)
     else:
-        sysm = TSlam(K_CAM, None, WH, n_features=512, seed=0, device="cpu")
+        sysm = TSlam(K_CAM, None, WH, n_features=512, seed=0, device="cpu", **kw)
     sysm.atlas.maps = [old, cur]
     sysm.atlas.current_idx = 1
     sysm._bind_map(cur)
@@ -242,10 +262,13 @@ def _two_map_system(pkg):
     return dict(ok=ok, sys=sysm, aligned=aligned, n_old=n_old, expect=(R.T, -R.T @ t / s, 1 / s))
 
 
-def test_merge_two_hand_built_maps():
-    out = {p: _two_map_system(p) for p in ("jax", "torch")}
+@pytest.mark.parametrize("rig", ["mono", "stereo"])
+def test_merge_two_hand_built_maps(rig):
+    out = {p: _two_map_system(p, rig) for p in ("jax", "torch")}
     j, t = out["jax"], out["torch"]
     assert t["ok"] and j["ok"]
+    assert t["sys"].loop_closer.fix_scale == j["sys"].loop_closer.fix_scale == (rig == "stereo")
+    assert t["sys"].mapper.bf == pytest.approx(j["sys"].mapper.bf)
     (Rj, tj, sj, _), (Rt, tt, st, gap) = j["aligned"][0], t["aligned"][0]
     assert gap < 1e-4      # the aligned keyframes land on their originals
     R_e, t_e, s_e = t["expect"]

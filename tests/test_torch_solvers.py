@@ -195,3 +195,95 @@ def test_ba_classify_inliers():
     it, ct = tba.classify_inliers(pt, T(K))
     np.testing.assert_allclose(N(ct), N(cj), rtol=1e-4, atol=1e-3)
     assert (N(it) != N(ij)).mean() <= 0.01
+
+
+KB8_L = np.array([190.978, 190.973, 256.0, 256.0, 0.00348, 0.000715, -0.00205, 0.000202],
+                 np.float32)
+KB8_R = np.array([191.2, 191.1, 254.5, 257.0, 0.0031, 0.0009, -0.0019, 0.00018], np.float32)
+
+
+def _rig_problem(rng, kind: str):
+    """_ba_problem's points and poses with the rows of a rig: ``stereo`` adds
+    the right-column coordinate u_R = u − bf/z to 60% of the rows of a
+    pinhole rig; ``tobody`` observes the points through a KB8 camera and adds,
+    for half of them, a row of a second KB8 camera at T_rl ∘ T_kf (the
+    reference's EdgeSE3ProjectXYZToBody). Returns (arrays, extra
+    BAProblem fields, camera parameters, camera type)."""
+    from orbslam3_tpu.ops import camera as jcam
+    arrays, X = _ba_problem(rng, n_kf=5, n_pt=200)
+    kf, mp = arrays["obs_kf"], arrays["obs_mp"]
+    R0, t0 = arrays["R"], arrays["t"]
+    O = len(kf)
+    if kind == "stereo":
+        bf = np.float32(0.11 * K[0])
+        xc = np.einsum("oij,oj->oi", R0[kf], X[mp].astype(np.float32)) + t0[kf]
+        ur = (arrays["obs_uv"][:, 0] - bf / xc[:, 2] + rng.normal(0, 0.7, O)).astype(np.float32)
+        arrays["obs_ur"] = np.where(rng.random(O) < 0.6, ur, -1.0).astype(np.float32)
+        return arrays, dict(bf=float(bf)), K, 0
+    R_rl = np.asarray(jlie.so3_exp(J(np.float32([0.0, 0.008, 0.0]))))
+    t_rl = np.float32([-0.101, 0.0, 0.0])
+    # the true poses: the first two are fixed and unperturbed
+    xc_l = np.einsum("oij,oj->oi", R0[kf], X[mp].astype(np.float32)) + t0[kf]
+    uv_l = np.asarray(jcam.kb8_project(J(KB8_L), J(xc_l.astype(np.float32))))
+    two = rng.random(O) < 0.5
+    xc_r = xc_l[two] @ R_rl.T + t_rl
+    uv_r = np.asarray(jcam.kb8_project(J(KB8_R), J(xc_r.astype(np.float32))))
+    uv = np.concatenate([uv_l, uv_r]) + rng.normal(0, 0.5, (O + int(two.sum()), 2))
+    uv = uv.astype(np.float32)
+    uv[::25] += 20.0                                # gross outliers
+    n2 = int(two.sum())
+    arrays.update(
+        obs_kf=np.concatenate([kf, kf[two]]).astype(np.int32),
+        obs_mp=np.concatenate([mp, mp[two]]).astype(np.int32), obs_uv=uv,
+        obs_inv_sigma2=np.ones(O + n2, np.float32), obs_valid=np.ones(O + n2, bool),
+        obs_ur=np.full(O + n2, -1.0, np.float32))
+    extra = dict(bf=float(np.linalg.norm(t_rl) * KB8_L[0]),
+                 obs_cam=np.r_[np.zeros(O, np.int32), np.ones(n2, np.int32)],
+                 cam_params2=KB8_R, R_rl=R_rl, t_rl=t_rl)
+    return arrays, extra, KB8_L, 1
+
+
+def _rot_err_skew(Ra, Rb):
+    """Rotation angle between two float32 rotations from the skew part of
+    RaᵀRb in float64: arccos of the trace leaves ~5e-4 rad of noise when
+    float32 matrices are off orthonormal by an ulp."""
+    M = np.asarray(Ra, np.float64).T @ np.asarray(Rb, np.float64)
+    w = 0.5 * np.array([M[2, 1] - M[1, 2], M[0, 2] - M[2, 0], M[1, 0] - M[0, 1]])
+    return float(np.arcsin(min(np.linalg.norm(w), 1.0)))
+
+
+@pytest.mark.parametrize("kind", ["stereo", "tobody"])
+def test_ba_rig_rows(kind):
+    """Stereo right-column rows and the two-camera rig's second-camera (ToBody)
+    rows: one linearization within 1e-5 relative of JAX's (residuals,
+    Jacobians, weights, chi2; every entry finite, the SKILL.md hazard), then
+    local_ba within test_local_ba's tolerances (points: see below)."""
+    rng = np.random.default_rng(11 if kind == "stereo" else 12)
+    arrays, extra, camp, cam_type = _rig_problem(rng, kind)
+    bf = extra.pop("bf")
+    pj = jba.BAProblem(bf=J(np.float32(bf)), **{k: J(v) for k, v in arrays.items()},
+                       **{k: J(v) for k, v in extra.items()})
+    pt = tba.BAProblem(bf=bf, **{k: T(v) for k, v in arrays.items()},
+                       **{k: T(v) for k, v in extra.items()})
+    huber = np.sqrt(np.float32(jba.CHI2_MONO))
+    w_mask = np.ones(len(arrays["obs_kf"]), np.float32)
+    lj = jba._linearize(pj, pj.pts, pj.R, pj.t, J(w_mask), cam_type, J(camp), J(huber))
+    lt = tba._linearize(pt, pt.pts, pt.R, pt.t, T(w_mask), cam_type, T(camp), T(huber))
+    for name, a, b in zip(("chi2", "w", "Jpose", "Jpt", "r"), lt, lj):
+        a, b = N(a), N(b)
+        assert np.isfinite(a).all(), name
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * max(np.abs(b).max(), 1.0),
+                                   err_msg=name)
+    rj = jax.jit(lambda p, k: jba.local_ba(p, k, cam_type=cam_type, iters1=5, iters2=10))(
+        pj, J(camp))
+    rt = tba.local_ba(pt, T(camp), cam_type=cam_type, iters1=5, iters2=10)
+    for k in range(len(arrays["R"])):
+        assert _rot_err_skew(N(rt.R)[k], N(rj.R)[k]) < 2e-4
+    np.testing.assert_allclose(N(rt.t), N(rj.t), rtol=0, atol=2e-4)
+    # points within 2e-3 as in test_local_ba, but for one in a hundred: with
+    # the 190 px fisheye a point left with four inlier rows is three times
+    # looser along its ray than with the 458 px pinhole (one point of 200,
+    # seed 12: 8e-3 at 6.5 m, every other within 1.2e-4)
+    dp = np.abs(N(rt.pts) - N(rj.pts)).max(axis=1)
+    assert (dp < 2e-3).mean() >= 0.99 and dp.max() < 1e-2, np.sort(dp)[-3:]
+    assert (N(rt.obs_inlier) != N(rj.obs_inlier)).mean() <= 0.01

@@ -128,3 +128,187 @@ def build_reference_map(frames, n_kf: int = 2, stride: int = 1):
         m.kf_feat_mp[k, j[keep]] = ids[keep]
     m.refresh_map_points(ids)
     return m
+
+
+# ---------------------------------------------------------------------------
+# the KB8 fisheye camera end to end (test_torch_e2e_fisheye{,_mono}.py)
+# ---------------------------------------------------------------------------
+KB8 = np.asarray([190.978, 190.973, 256.0, 256.0,
+                  0.00348, 0.000715, -0.00205, 0.000202], np.float32)
+FISHEYE_ORBIT = 24      # tests/test_e2e_fisheye.py's orbits
+FISHEYE_FRAMES = 16     # of which both packages track the first 16
+ERROR_COUNTS = ("mapper_errors", "lc_errors", "gba_errors", "reloc_query_errors",
+                "merge_errors")
+
+
+def fisheye_runs(kind: str) -> dict:
+    """tests/test_e2e_fisheye.py's ``rig`` (two-camera KB8 rig, seed 8, orbit
+    of radius 0.5, metric ATE) or ``mono`` (seed 6, radius 0.6, scale-aligned
+    ATE) run at its settings (512x512, 512 features, dense_tracking_params(),
+    cam_type=1, loop closing off) through both packages on the same rendered
+    first ``FISHEYE_FRAMES`` frames. Returns {"kind", "jax": record, "torch":
+    record}."""
+    from conftest import dense_tracking_params
+    from orbslam3_tpu.models.system import SlamSystem as JaxSlam
+    from orbslam3_tpu.ops import lie as jlie
+    from orbslam3_tpu.utils.datasets import RoomScene, orbit_trajectory
+    from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+    from orbslam3_tpu_torch.models.system import SlamSystem
+    from orbslam3_tpu_torch.models.tracking import TrackingParams
+    from orbslam3_tpu_torch.utils.convert import config_from
+    rig = kind == "rig"
+    scene = RoomScene(seed=8 if rig else 6, depth=6.0, half_w=4.0, half_h=2.5,
+                      h=512, w=512, fx=190.978, fy=190.973, cx=256.0, cy=256.0)
+    scene.kb8_params = KB8
+    poses = orbit_trajectory(FISHEYE_ORBIT, radius=0.5 if rig else 0.6,
+                             forward=0.03)[:FISHEYE_FRAMES]
+    R_rl = np.asarray(jlie.so3_exp(J(np.float32([0.0, 0.008, 0.0]))))
+    t_rl = np.array([-0.101, 0.0, 0.0], np.float32)
+    frames = [(scene.render(R, t), scene.render(R_rl @ R, R_rl @ t + t_rl) if rig else None)
+              for R, t in poses]
+    gt = np.array([-R.T @ t for R, t in poses])
+    jparams = dense_tracking_params()
+    kw = dict(n_features=512, seed=0, cam_type=1, enable_loop_closing=False)
+    out = {"kind": kind}
+    for name, system in (
+            ("jax", JaxSlam(KB8, None, (512, 512), tracking_params=jparams, **kw)),
+            ("torch", SlamSystem(KB8, None, (512, 512), device="cpu",
+                                 tracking_params=config_from(jparams, TrackingParams), **kw))):
+        if rig:
+            system.set_fisheye_rig(KB8, R_rl, t_rl, lap_l=(0.0, 511.0), lap_r=(0.0, 511.0))
+        states, n_depth = [], []
+        for i, (img, img_r) in enumerate(frames):
+            if rig:
+                system.track_stereo_fisheye(img, img_r, ts=i / 20.0)
+                n_depth.append(int((system.tracker.last_frame.depth > 0).sum()))
+            else:
+                system.track_monocular(img, ts=i / 20.0)
+            states.append(system.state.name)
+        ts, _, t_wc, lost = system.export_trajectory()
+        sel = ~lost
+        ate, n = evaluate_trajectory(np.arange(FISHEYE_FRAMES) / 20.0, gt, ts[sel], t_wc[sel],
+                                     with_scale=not rig)
+        out[name] = dict(system=system, states=states, ate=ate, n_assoc=n,
+                         n_tracked=int(sel.sum()), n_depth=n_depth, stats=system.stats())
+    return out
+
+
+def check_fisheye_tracking(runs):
+    j, t = runs["jax"], runs["torch"]
+    assert t["states"][-1] == "OK", t["states"]
+    assert t["n_tracked"] >= j["n_tracked"] - 2, (t["states"], j["states"])
+    assert t["n_assoc"] > 0.6 * FISHEYE_FRAMES
+
+
+def check_fisheye_ate(runs):
+    j, t = runs["jax"], runs["torch"]
+    assert t["ate"] <= max(1.5 * j["ate"], j["ate"] + 0.02), (runs["kind"], t["ate"], j["ate"])
+
+
+def check_fisheye_errors_and_rig(runs):
+    t = runs["torch"]
+    for key in ERROR_COUNTS:
+        assert t["stats"].get(key, 0) == 0, (key, t["stats"].get("last_" + key[:-1]))
+    tr = t["system"].tracker
+    assert tr.cam_type == 1 and t["system"].mapper.cam_type == 1
+    if runs["kind"] == "rig":
+        assert tr.rig is not None and t["system"].mapper.rig is tr.rig
+        assert tr.bf == pytest.approx(0.101 * 190.978, rel=1e-6)
+        assert min(t["n_depth"]) >= 50, t["n_depth"]
+
+
+# ---------------------------------------------------------------------------
+# stereo and RGB-D end to end (test_torch_e2e_stereo*.py, test_torch_e2e_kf_policy.py)
+# ---------------------------------------------------------------------------
+DEPTH_RIG_FRAMES = 14   # tests/test_e2e_stereo.py's orbits
+DEPTH_RIG_BASELINE = 0.11
+
+
+@functools.lru_cache(maxsize=None)
+def depth_rig_inputs(kind: str, n_frames: int = DEPTH_RIG_FRAMES):
+    """tests/test_e2e_stereo.py's fixtures: RoomScene(seed=2) with the right
+    eye from scene.stereo_pose (``stereo``) or RoomScene(seed=3) with the
+    renderer's depth (``rgbd``), along orbit_trajectory(n_frames, radius=0.6,
+    forward=0.03) (14 frames in that file). Returns (scene, ground-truth
+    centres, frames)."""
+    from orbslam3_tpu.utils.datasets import RoomScene, orbit_trajectory
+    scene = RoomScene(seed=2 if kind == "stereo" else 3, depth=6.0, half_w=4.0, half_h=2.5)
+    poses = orbit_trajectory(n_frames, radius=0.6, forward=0.03)
+    frames = []
+    for R, t in poses:
+        if kind == "stereo":
+            Rr, tr = scene.stereo_pose(R, t, DEPTH_RIG_BASELINE)
+            frames.append((scene.render(R, t), scene.render(Rr, tr)))
+        else:
+            frames.append(scene.render(R, t, return_depth=True))
+    return scene, np.array([-R.T @ t for R, t in poses]), frames
+
+
+def depth_rig_runs(kind: str, th_depth_baselines: float = 40.0, **params) -> dict:
+    """One of ``depth_rig_inputs``' walks through both packages: 512 features,
+    bf = 0.11·fx, th_depth = 0.11·``th_depth_baselines``, loop closing on (the
+    default), sync mapping, ``dense_tracking_params(**params)``. The state after each frame
+    is read from the tracker, which does not flush a software pipeline, and
+    the frames still in flight after the last one are counted before the
+    export flushes them. Returns {"kind", "params", "jax": record, "torch":
+    record}."""
+    from conftest import dense_tracking_params
+    from orbslam3_tpu.models.system import SlamSystem as JaxSlam
+    from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+    from orbslam3_tpu_torch.models.system import SlamSystem
+    from orbslam3_tpu_torch.models.tracking import TrackingParams
+    from orbslam3_tpu_torch.utils.convert import config_from
+    scene, gt, frames = depth_rig_inputs(kind)
+    kw = dict(n_features=512, seed=0, bf=DEPTH_RIG_BASELINE * scene.fx,
+              th_depth=DEPTH_RIG_BASELINE * th_depth_baselines)
+    jparams = dense_tracking_params(**params)
+    out = {"kind": kind, "params": params}
+    for name, system in (
+            ("jax", JaxSlam(scene.K, None, (scene.w, scene.h), tracking_params=jparams, **kw)),
+            ("torch", SlamSystem(scene.K, None, (scene.w, scene.h),
+                                 tracking_params=config_from(jparams, TrackingParams),
+                                 device="cpu", **kw))):
+        states = []
+        for i, (a, b) in enumerate(frames):
+            if kind == "stereo":
+                system.track_stereo(a, b, ts=float(i) / 20.0)
+            else:
+                system.track_rgbd(a, b, ts=float(i) / 20.0)
+            states.append(system.tracker.state.name)
+        in_flight = len(system.tracker._pending)
+        ts, _, t_wc, lost = system.export_trajectory()
+        ate, n = evaluate_trajectory(np.arange(DEPTH_RIG_FRAMES) / 20.0, gt, ts[~lost],
+                                     t_wc[~lost], with_scale=False)
+        out[name] = dict(system=system, states=states, ate=ate, n_assoc=n,
+                         in_flight=in_flight, paths=dict(system.tracker.path_counts),
+                         stats=system.stats())
+    return out
+
+
+def check_depth_rig_init(runs):
+    """Both packages initialize on frame 0 (stereo initialization needs one
+    frame) and the port tracks every frame after the second."""
+    sj, st = runs["jax"]["states"], runs["torch"]["states"]
+    assert sj.index("OK") == st.index("OK") == 0, (sj, st)
+    assert all(s == "OK" for s in st[2:]), st
+
+
+def check_depth_rig_ate(runs):
+    """Metric ATE (no scale alignment: a rig with depth is metric) no worse
+    than max(1.5 x JAX, JAX + 0.02)."""
+    j, t = runs["jax"], runs["torch"]
+    assert t["n_assoc"] > 0.8 * DEPTH_RIG_FRAMES
+    assert t["ate"] <= max(1.5 * j["ate"], j["ate"] + 0.02), (runs, t["ate"], j["ate"])
+
+
+def check_depth_rig_keyframes_and_errors(runs):
+    """Keyframe counts within ±2 (float32 rounding moves matches and culling
+    decisions, not the accuracy class), every thread and query error count
+    0, close points spawned, the loop closer at fixed scale."""
+    j, t = runs["jax"]["stats"], runs["torch"]["stats"]
+    assert abs(t["n_keyframes"] - j["n_keyframes"]) <= 2, (t["n_keyframes"], j["n_keyframes"])
+    for key in ERROR_COUNTS:
+        assert t.get(key, 0) == 0, (key, t.get("last_" + key[:-1]))
+    assert t["n_map_points"] > 0
+    system = runs["torch"]["system"]
+    assert system.tracker.bf > 0 and system.loop_closer.fix_scale
