@@ -42,23 +42,32 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                 detection and loop edge, its corrected poses' bounds, and the
                 guided projection (2048 x 1024) and SearchAndFuse (4096 x
                 1024) launching match_rows;
-  9. headline - 120 frames of the walk with SlamSystem's defaults, bench.py's
+  9. headline - 80 frames of the walk with SlamSystem's defaults, bench.py's
                 configuration: mapping_mode="async",
                 TrackingParams(pipeline=True), loop closing on: frames/s over
                 the tracking loop, latency split by frames that made a
                 keyframe and frames that did not, the mapper's drain time and
                 queue depth, the loop closer's counters;
- 10. stereo   - the walk's first 40 frames through bench.py's stereo rig without the
+ 10. stereo   - the walk's first 20 frames through bench.py's stereo rig without the
                 IMU (bench_vi_e2e's make_system() minus enable_imu: bf =
                 0.11·fx, th_depth = 40, async mapping, the pipelined stereo
                 front end, loop closing on), metric ATE, features with a depth
                 per frame, close points, the stereo match's stage and its
                 time per frame pair;
- 11. rgbd     - the walk's first 20 frames with the renderer's depth, sync;
- 12. fisheye  - tests/test_e2e_fisheye.py's two-camera KB8 rig (metric ATE)
+ 11. vi       - bench.py::bench_vi_e2e's make_system() exactly (the stereo rig
+                with enable_imu at 200 Hz, async mapping, the pipeline, loop
+                closing on) over the walk's first 66 stereo pairs with
+                bench.py's IMU stream: the IMU must initialize, at least 20
+                frames must ride the fused visual-inertial step
+                (kernels.fused_track_vi_pooled), metric ATE within its bound;
+                frames/s, the IMU-init frame, the stage medians and the
+                preintegration's device kernels per frame; both match_rows
+                entries held exact at every shape the phase launched;
+ 12. rgbd     - the walk's first 20 frames with the renderer's depth, sync;
+ 13. fisheye  - tests/test_e2e_fisheye.py's two-camera KB8 rig (metric ATE)
                 and monocular KB8 (scale-aligned) at 512x512, 1500 features,
                 the first 16 frames of each orbit;
- 13. stereo merge - tests/test_atlas.py's stereo map stored behind blank frames
+ 14. stereo merge - tests/test_atlas.py's stereo map stored behind blank frames
                 and merged back by the loop closer's query, at a fixed scale;
 every system phase is checked for initialization, tracked fraction, ATE
 (scale-aligned for a monocular rig, metric for one with depth), the errors the
@@ -107,13 +116,14 @@ N_FEATURES = 1024
 N_MP = 4096
 SLICE_FRAMES = 60
 HEADLINE_FRAMES = 300    # the walk bench.py and the reference's records measure
-# The smoke run's headline covers the walk's opening, frames 0-119 (cut from
-# 300 when the loop and merge phases came in): the whole script must stay
-# within 600 s, and a card's host is up to 1.5x slower in one call than in
-# another. The loop closer's part of the walk it leaves out, frames 280-299,
-# verifies no candidate in either package; the loop and merge phases hold
-# loop closing and merging, scripts/walk_variants.py the 300-frame walk.
-HEADLINE_SMOKE_FRAMES = 120
+# The smoke run's headline covers the walk's opening, frames 0-79 (cut from
+# 300 to 120 when the loop and merge phases came in, then to 80 when the
+# visual-inertial phase did): the whole script must stay within 480 s, and a
+# card's host is up to 1.5x slower in one call than in another. The loop
+# closer's part of the walk it leaves out, frames 280-299, verifies no
+# candidate in either package; the loop and merge phases hold loop closing
+# and merging, scripts/walk_variants.py the 300-frame walk.
+HEADLINE_SMOKE_FRAMES = 80
 OPENING = 120            # the walk's opening frames: no run so far has lost a frame in them
 RELOC_BLANK = 5          # textureless frames; the tracker starts a new map at 20
 RELOC_RESUME = 10
@@ -135,15 +145,15 @@ RELOC_RESUME = 10
 #     package loses frame 284, the port none), and the JAX package's own
 #     accelerator benchmarks of this walk record the same (BENCH_r03-r05.json:
 #     ATE 0.6298, 0.0852, 0.4252 m with 1-2 lost frames). So the smoke run
-#     holds the walk's first 120 frames alone, in which no run of the port
-#     has lost a frame and where the mapper thread has by then run on some 60
-#     keyframes (the 300-frame walk runs in scripts/walk_variants.py).
-#   headline with loop closing (the defaults): the JAX package with sync
-#     mapping and loop closing over the 300 frames gives 0.0120 m over frames
-#     0-119 (0.0287 m over the whole walk, frame 284 lost, no candidate
+#     holds the walk's first 80 frames alone, in which no run of the port
+#     has lost a frame (the 300-frame walk runs in scripts/walk_variants.py).
+#   headline with loop closing (the defaults), 80 frames: the JAX package with
+#     sync mapping and loop closing gives 0.009968158 m (tracked 77 of 80
+#     from frame 3, 11 keyframes; over frames 0-119 of the 300-frame walk
+#     0.0120 m, over the whole walk 0.0287 m, frame 284 lost, no candidate
 #     verified: the walk is back at its start only from frame 280), so the
-#     opening's bound is max(1.5 x 0.0120, 0.0120 + 0.02). Its async runs on
-#     the CPU starve the mapper (0.1131 m over the opening) and say nothing
+#     bound is max(1.5 x 0.009968158, 0.009968158 + 0.02). Its async runs on
+#     the CPU starve the mapper (0.1131 m over frames 0-119) and say nothing
 #     about the card.
 #   loop walk, sync: at 752x480 and 1024 features the JAX package on the
 #     CPU closes it at frame 110 on the walk's first keyframes sitting just
@@ -182,7 +192,7 @@ RELOC_RESUME = 10
 #     the 5th (9 valid keyframes in the stored map, 12 after the merge).
 TRACKED_MIN = 0.95
 SLICE_ATE_MAX = 0.0307
-HEADLINE_OPENING_ATE_MAX = 0.0320
+HEADLINE_OPENING_ATE_MAX = 0.029968
 LOOP_ATE_MAX = 1.4296
 LOOP_FEATURES = 256
 LOOP_ASYNC_AFTER = 10
@@ -209,12 +219,14 @@ LOOP_COUNTERS = ("loops_detected", "loops_corrected", "candidates_checked", "mer
 # and 40 when it took 482.6 s on a slow host, then to 60 and 30, and the
 # fisheye orbits from 24 frames to 16, when it took 516.5 s (the loop walk's
 # async run closes anywhere between frames 70 and 172), then to 40 and 20
-# when it took 505.1 s (that run closed at frame 115). Stereo
+# when it took 505.1 s (that run closed at frame 115), and stereo to 20 when
+# the visual-inertial phase (cell 13, which runs the same pipelined stereo
+# front end over 80 frames) came in. Stereo
 # merge (cell 12): tests/test_atlas.py's merge found by the keyframe
 # database's query, loop closing on.
 STEREO_BASELINE = 0.11
 STEREO_TH_DEPTH = 40.0
-STEREO_FRAMES = 40
+STEREO_FRAMES = 20
 RGBD_FRAMES = 20
 FISHEYE_KB8 = np.asarray([190.978, 190.973, 256.0, 256.0, 0.00348, 0.000715, -0.00205,
                           0.000202], np.float32)
@@ -234,13 +246,13 @@ STEREO_MERGE_REVISIT = 10
 #     fraction is held at JAX's less two frames.
 #   stereo merge: JAX stores 23 keyframes and merges on the 2nd revisit frame
 #     (the port on the CPU: 22, the 2nd); the port gets two frames more.
-#   stereo, 40 frames: JAX with sync mapping and the pipeline tracks every
-#     frame from frame 0 (8 keyframes left after culling), metric ATE 0.018857
-#     (over 60 frames: 0.01655; over 80: 0.01638; over 120: 0.01544).
+#   stereo, 20 frames: JAX with sync mapping and the pipeline tracks every
+#     frame from frame 0 (4 keyframes), metric ATE 0.027190385 (over 40
+#     frames: 0.018857; over 60: 0.01655; over 80: 0.01638; over 120: 0.01544).
 #   rgbd, 20 frames sync: JAX tracks every frame from frame 0, metric ATE
 #     0.010260 (4 keyframes; over 30 frames: 0.00987; over 40: 0.00900; over
 #     60: 0.00833).
-STEREO_ATE_MAX = 0.038857
+STEREO_ATE_MAX = 0.047190
 RGBD_ATE_MAX = 0.030260
 FISHEYE_RIG_ATE_MAX = 0.0284
 FISHEYE_MONO_ATE_MAX = 0.0250
@@ -252,6 +264,30 @@ STEREO_MERGE_WITHIN = 4
 # redundancy culling.
 LOOP_PERIOD = 112
 LOOP_FRAMES = int(LOOP_PERIOD * 1.6)
+# The visual-inertial phase (cell 13): bench.py::bench_vi_e2e's make_system()
+# on the walk's first VI_FRAMES frames, its 200 Hz IMU stream (gravity along
+# the world's +y, bench.py's G_W) computed here with the port's so3_log. The
+# JAX package on the CPU (scripts/reference_walks.py --package jax --phase vi,
+# sync mapping, pipeline on) initializes the IMU at frame VI_JAX_INIT_FRAME;
+# VI_FRAMES is that plus 30 (80 until the whole script took 488.6 s on an NVIDIA
+# H100 80GB HBM3 at 700 W). Over these 66 frames JAX keeps 15 keyframes, takes 26
+# frames on its fused step and runs 17 inertial BAs, metric ATE VI_JAX_ATE; the
+# port on the CPU: frame 36, 15, 26, 17, 0.04771550503118871 (over 80 frames: JAX
+# 0.09881515247719398, the port 0.10977680332711771, 40 fused frames each).
+VI_FRAMES = 66
+VI_IMU_HZ = 200
+VI_G_W = (0.0, 9.81, 0.0)
+VI_JAX_INIT_FRAME = 36
+VI_JAX_ATE = 0.04464813159899416
+VI_PORT_CPU_ATE = 0.04771550503118871
+VI_ATE_MAX = max(1.5 * VI_JAX_ATE, VI_JAX_ATE + 0.02)
+VI_FUSED_MIN = 20
+# the walk's right eye serves the stereo and the visual-inertial phases
+RIGHT_FRAMES = max(STEREO_FRAMES, VI_FRAMES)
+# the stages the visual-inertial phase prints (median host ms, count)
+VI_STAGES = ("0.imu_preintegration", "1.orb_extraction", "2.stereo_match",
+             "3f.fused_dispatch", "3g.fused_consume", "9.local_ba", "9i.local_inertial_ba",
+             "15.imu_init", "16.full_inertial_ba")
 
 
 def _reset_counts():
@@ -1178,13 +1214,14 @@ def fisheye_rig_pose():
 
 
 def sensor_jobs(walk_scene, walk_kw, walk_poses):
-    """The views the stereo, fisheye and stereo-merge phases need beyond the
-    walk's left images (the RGB-D phase takes the walk's own, with depth), as
-    render jobs: the walk's right eye (baseline 0.11), the fisheye scenes'
-    orbits (the rig's two eyes, the monocular one) and the stereo merge
-    scene's orbit (both eyes)."""
+    """The views the stereo, visual-inertial, fisheye and stereo-merge phases
+    need beyond the walk's left images (the RGB-D phase takes the walk's own,
+    with depth), as render jobs: the walk's right eye (baseline 0.11) over the
+    first RIGHT_FRAMES frames, the fisheye scenes' orbits (the rig's two
+    eyes, the monocular one) and the stereo merge scene's orbit (both
+    eyes)."""
     jobs = [("walk", walk_kw, walk_scene.stereo_pose(R, t, STEREO_BASELINE), False)
-            for (R, t) in walk_poses[:STEREO_FRAMES]]
+            for (R, t) in walk_poses[:RIGHT_FRAMES]]
     R_rl, t_rl = fisheye_rig_pose()
     for kind, kw, poses in fisheye_scenes():
         for (R, t) in poses:
@@ -1220,7 +1257,7 @@ def stereo_merge_scene():
 def split_sensor_views(views):
     """The rendered ``sensor_jobs`` views, by phase."""
     it = iter(views)
-    right = [next(it) for _ in range(STEREO_FRAMES)]
+    right = [next(it) for _ in range(RIGHT_FRAMES)]
     fish = {}
     for kind, _, poses in fisheye_scenes():
         if kind == "fisheye_rig":
@@ -1390,6 +1427,199 @@ def phase_stereo(scene, poses, imgs, right):
     return r
 
 
+def vi_imu_stream(n_frames: int):
+    """bench.py::bench_vi_e2e's make_imu(): the walk's pose at fractional
+    frames (walk_trajectory's formula, period 280), velocities and
+    accelerations by finite differences at VI_IMU_HZ, gyro from the relative
+    rotations (the port's so3_log), specific force against gravity VI_G_W.
+    Returns (timestamps, gyro, acc) of n_frames / 20 s of samples."""
+    period, fps = 280.0, 20.0
+
+    def pose_at(x):
+        ph = 2 * np.pi * (x % period) / period
+        c = np.array([2.2 * np.sin(ph), 0.5 * np.sin(2 * ph), 2.0 + 1.1 * np.cos(ph)])
+        yaw = 0.25 * np.sin(ph + 0.7)
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        R_wc = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        return R_wc.T, -R_wc.T @ c
+
+    dt = 1.0 / VI_IMU_HZ
+    n_steps = int(n_frames * VI_IMU_HZ / fps)
+    xs = np.arange(n_steps + 1) * (fps / VI_IMU_HZ)
+    poses = [pose_at(x) for x in xs]
+    R_wb = np.stack([R.T for R, t in poses])
+    p = np.stack([-R.T @ t for R, t in poses])
+    v = np.gradient(p, dt, axis=0)
+    a_w = np.gradient(v, dt, axis=0)
+    dRm = np.einsum("nji,njk->nik", R_wb[:-1], R_wb[1:]).astype(np.float32)
+    gyro = lie.so3_log(torch.from_numpy(dRm)).numpy().astype(np.float64) / dt
+    acc = np.einsum("nji,nj->ni", R_wb[:-1], a_w[:-1] - np.asarray(VI_G_W)[None])
+    return ((np.arange(n_steps) + 1) * dt, gyro.astype(np.float32), acc.astype(np.float32))
+
+
+def run_vi(scene, imgs, right, n_frames: int = VI_FRAMES, mapping_mode: str = "async",
+           system_cls=SlamSystem, params_cls=TrackingParams, **system_kw):
+    """bench.py::bench_vi_e2e's make_system() (752x480, 1024 features,
+    bf = 0.11·fx, th_depth = 40, ``mapping_mode`` async, TrackingParams(
+    kf_interval_override=5, pipeline=True), loop closing on, enable_imu at
+    200 Hz) over the walk's first ``n_frames`` stereo pairs through
+    track_stereo_inertial with bench.py's IMU slices, then flush_pending(),
+    wait_idle() and the export. ``system_cls`` / ``params_cls``: the port's
+    classes or the JAX package's (scripts/reference_walks.py). Returns
+    (system, record)."""
+    slam = system_cls(scene.K, None, (scene.w, scene.h), n_features=N_FEATURES, seed=0,
+                      bf=STEREO_BASELINE * scene.fx, th_depth=STEREO_TH_DEPTH,
+                      mapping_mode=mapping_mode,
+                      tracking_params=params_cls(kf_interval_override=5, pipeline=True),
+                      **system_kw)
+    slam.enable_imu(freq=VI_IMU_HZ)
+    tr = slam.tracker
+    imu_ts, gyro, acc = vi_imu_stream(n_frames)
+    per = VI_IMU_HZ // 20
+    _sync()
+    _reset_counts()
+    lat, imu_flags = [], []
+    t_start = time.perf_counter()
+    for i in range(n_frames):
+        s0, s1 = (i - 1) * per, i * per
+        if i == 0:
+            s0 = s1 = 0
+        t_call = time.perf_counter()
+        slam.track_stereo_inertial(imgs[i], right[i], ts=i / 20.0, imu_ts=imu_ts[s0:s1],
+                                   imu_gyro=gyro[s0:s1], imu_acc=acc[s0:s1])
+        lat.append((time.perf_counter() - t_call) * 1e3)
+        imu_flags.append(bool(tr.imu_initialized))
+    tr.flush_pending()
+    _sync()
+    t_track = time.perf_counter() - t_start
+    drained = slam.wait_idle(timeout=120.0)
+    t_drain = time.perf_counter() - t_start - t_track
+    launches = _read_counts()
+    st = slam.stats()
+    poses = walk_trajectory(n_frames, period=280)
+    gt = np.array([-R.T @ t for (R, t) in poses])
+    ts, _, t_wc, lost = slam.export_trajectory()
+    sel = ~lost
+    if not np.isfinite(t_wc[sel]).all():
+        raise AssertionError("non-finite poses in the exported trajectory")
+    ate, n_assoc = evaluate_trajectory(np.arange(n_frames) / 20.0, gt, ts[sel], t_wc[sel],
+                                       with_scale=False)
+    stages = {k: [round(v.get("median_ms", v["mean_ms"]), 2), v.get("n", 1)]
+              for k, v in sorted(st.get("stage_times", {}).items())}
+    rec = dict(
+        frames=n_frames, fps=n_frames / t_track, lat_all=percentiles(np.array(lat)),
+        drained=bool(drained), drain_s=t_drain, imu_initialized=bool(tr.imu_initialized),
+        imu_init_frame=imu_flags.index(True) if any(imu_flags) else None,
+        paths=dict(tr.path_counts), n_keyframes=st["n_keyframes"],
+        n_map_points=st["n_map_points"], n_lost=int(lost.sum()),
+        tracked=float(sel.sum()) / n_frames, ate=float(ate), n_assoc=int(n_assoc),
+        vi_ba_runs=st.get("vi_ba_runs", 0), viba1=st.get("viba1", 0),
+        bad_imu_resets=st.get("bad_imu_resets", 0),
+        mapper_errors=int(st.get("mapper_errors", 0)),
+        last_mapper_error=st.get("last_mapper_error"), launches=launches,
+        loop=loop_counters(slam), stages={k: stages[k] for k in VI_STAGES if k in stages})
+    return slam, rec
+
+
+def preint_launches() -> int:
+    """Device kernels the per-frame preintegration launches (a frame's 10
+    samples: preintegrate, then compose into the since-keyframe block),
+    counted by torch.profiler on the card."""
+    from orbslam3_tpu_torch.ops import imu as imu_ops
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    d = torch.zeros((10, 8), device=dev)
+    d[:, 2] = 9.81
+    d[:, 6] = 1.0 / VI_IMU_HZ
+    z = torch.zeros(3, device=dev)
+    base = imu_ops.init_state(device=dev)
+
+    def step():
+        st = imu_ops.preintegrate(d[:, 0:3], d[:, 3:6], d[:, 6], None, z, z,
+                                  1.7e-4, 2e-3, 1e-5, 1e-4, VI_IMU_HZ)
+        return imu_ops.compose(base, st)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_vi(scene, imgs, right):
+    """Cell 13: bench.py::bench_vi_e2e's make_system() on the card (async,
+    pipeline, loop closing, the IMU). Every (M, N, T) at which the phase
+    launched match_rows or match_rows_dual is recorded; the caller holds both
+    entries exact at each."""
+    shapes = set()
+    inner = {name: getattr(kernels, name) for name in ("match_rows", "match_rows_dual")}
+
+    def recording(name):
+        def fn(mp_desc, *a, **k):
+            lead = tuple(mp_desc.shape[:-2])
+            shapes.add((int(mp_desc.shape[-2]), int(a[4].shape[-2]),
+                        int(lead[0]) if lead else None))
+            return inner[name](mp_desc, *a, **k)
+        return fn
+    for name in inner:
+        setattr(kernels, name, recording(name))
+    try:
+        slam, r = run_vi(scene, imgs, right)
+    finally:
+        for name, fn in inner.items():
+            setattr(kernels, name, fn)
+    runtime = slam.runtime
+    slam.shutdown(print_times=False)
+    alive = runtime.threads_alive()
+    r["kernel_shapes"] = sorted(shapes, key=str)
+    r["preint_launches_per_frame"] = preint_launches()
+    print(f"vi walk, bench_vi_e2e's make_system() (stereo-inertial, async mapping + pipeline "
+          f"+ loop closing, {r['frames']} frames): {r['fps']:.3f} frames/s, latency p50/p90/p99 "
+          f"{r['lat_all']} ms, IMU initialized at frame {r['imu_init_frame']}, frames on the "
+          f"fused visual-inertial step {r['paths'].get('fused_vi')}, metric ATE "
+          f"{r['ate']:.6f} (bound {VI_ATE_MAX:.6f}; on the CPU JAX {VI_JAX_ATE}, the port "
+          f"{VI_PORT_CPU_ATE}), keyframes "
+          f"{r['n_keyframes']}, inertial BAs {r['vi_ba_runs']}; drained {r['drained']} in "
+          f"{r['drain_s']:.1f} s; threads alive after shutdown {alive}")
+    print(f"vi stages [median host ms, n]: {json.dumps(r['stages'])}; preintegration "
+          f"{r['preint_launches_per_frame']} device kernels per frame (torch.profiler); "
+          f"match_rows shapes (M, N, T) {r['kernel_shapes']}; {json.dumps(r)}")
+    if alive:
+        raise AssertionError(f"vi: threads still running after shutdown: {alive}")
+    if not r["drained"]:
+        raise AssertionError("vi: the mapper did not drain within its timeout")
+    if not r["imu_initialized"]:
+        raise AssertionError("vi: the IMU never initialized")
+    if r["paths"].get("fused_vi", 0) < VI_FUSED_MIN:
+        raise AssertionError(f"vi: {r['paths'].get('fused_vi', 0)} frames on the fused "
+                             f"visual-inertial step, fewer than {VI_FUSED_MIN}")
+    check_sensor("vi", r, VI_ATE_MAX)
+    return r
+
+
+def check_kernel_shapes(shapes, checked):
+    """Both entries exact against their plain versions at every (M, N, T)
+    in ``shapes`` that the kernel phase did not hold already."""
+    rng = np.random.default_rng(11)
+    extra = [s for s in shapes if s not in checked]
+    for (M, N, T) in extra:
+        args = match_inputs(rng, M, N, T)
+        for name, kern, plain in (("match_rows", mr.match_rows, mr.match_rows_reference),
+                                  ("match_rows_dual", mr.match_rows_dual,
+                                   mr.match_rows_dual_reference)):
+            want, got = plain(*args), kern(*args)
+            torch.cuda.synchronize()
+            if name == "match_rows":
+                want, got = (want,), (got,)
+            for g3, w3 in zip(got, want):
+                for a, b in zip(g3, w3):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{name} M={M} N={N} T={T}: differs on "
+                                             f"{int((a != b).sum())} rows")
+    print(f"kernel shapes of the vi phase: {len(shapes)}, each exact "
+          f"({len(extra)} beyond the kernel phase's: {extra})")
+
+
 def phase_rgbd(scene, poses, imgs, depths):
     """Cell 10: the walk's first RGBD_FRAMES frames with the renderer's depth,
     sync mapping, loop closing on, bf = 0.11·fx, th_depth = 0.11·40."""
@@ -1460,7 +1690,8 @@ def main():
     # every view of every phase in one pool: the walk (its first RGBD_FRAMES
     # with depth), the loop walk, and the stereo / fisheye / merge views
     walk_kw = dict(seed=1, n_clutter=4)
-    scene, poses = RoomScene(**walk_kw), walk_trajectory(HEADLINE_SMOKE_FRAMES, period=280)
+    scene = RoomScene(**walk_kw)
+    poses = walk_trajectory(max(HEADLINE_SMOKE_FRAMES, VI_FRAMES), period=280)
     n_loop = LOOP_FRAMES + RELOC_BLANK + RELOC_RESUME
     loop_kw, loop_poses = loop_walk_spec(False, n_loop)
     jobs = ([("walk", walk_kw, p, i < RGBD_FRAMES) for i, p in enumerate(poses)]
@@ -1503,10 +1734,14 @@ def main():
     check_walk("headline", r_head, HEADLINE_OPENING_ATE_MAX)
     t_sensors = time.perf_counter()
     r_stereo = phase_stereo(scene, poses, imgs, right)
+    t_vi = time.perf_counter()
+    r_vi = phase_vi(scene, imgs, right)
+    check_kernel_shapes(r_vi["kernel_shapes"], set(KERNEL_SHAPES))
+    print(f"vi phase: {time.perf_counter() - t_vi:.1f} s")
     r_rgbd = phase_rgbd(scene, poses, imgs, depths)
     r_fish = phase_fisheye(fish)
     r_smerge = phase_stereo_merge(merge_views)
-    print(f"stereo, rgbd, fisheye and stereo merge phases: "
+    print(f"stereo, vi, rgbd, fisheye and stereo merge phases: "
           f"{time.perf_counter() - t_sensors:.1f} s")
     kernels_out = []
     for name, k in rec.items():
@@ -1524,6 +1759,7 @@ def main():
             "launches_loop_full_width": r_drift["launches"][name],
             "launches_merge": r_merge["launches"][name],
             "launches_stereo": r_stereo["launches"][name],
+            "launches_vi": r_vi["launches"][name],
             "launches_rgbd": r_rgbd["launches"][name],
             "launches_fisheye": r_fish["fisheye_mono"]["launches"][name],
             "launches_fisheye_rig": r_fish["fisheye_rig"]["launches"][name],

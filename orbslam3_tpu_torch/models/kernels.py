@@ -1,12 +1,13 @@
 """Composite device steps used by the tracking / mapping drivers.
 
-Port of the visual factories of ``orbslam3_tpu/models/kernels.py``. Each
+Port of the factories of ``orbslam3_tpu/models/kernels.py`` (the visual ones and
+the visual-inertial fused step). Each
 factory fixes its static configuration (camera, pyramid, thresholds, device)
 and returns a closure over torch tensors. Packed-output layouts are the
 reference's, word for word, so host bookkeeping reads the same buffers.
 
 Every masked windowed Hamming top-2 — the staged and pooled projection
-matchers, the fused tracker and the batched fuse — goes through
+matchers, the fused visual and visual-inertial trackers and the batched fuse — goes through
 ``ops.match_rows``: ``match_rows`` for one radius, ``match_rows_dual`` for the
 fused tracker's radius / 2x-radius pair (one launch); the Hopper kernels for
 CUDA tensors, their plain PyTorch versions for CPU tensors.
@@ -339,6 +340,119 @@ def fused_track_pooled(cam_type: int, n_levels: int, scale: float,
             a_last, a_loc,
             _pack_bits_i32(frustum2),
             _pack_bits_i32(res2.inlier),
+        ])
+
+    return fn
+
+
+@_cached_per_device
+def fused_track_vi_pooled(cam_type: int, n_levels: int, scale: float,
+                          cam_params: tuple, wh: tuple, bf: float,
+                          motion_radius: float, local_radius: float,
+                          motion_ratio: float, local_ratio: float,
+                          th_high: int, sigma_gw: float, sigma_aw: float,
+                          pose_rounds: int = 2, pose_iters: int = 10, device=None):
+    """Per-frame VISUAL-INERTIAL tracking against the device-resident pool
+    (the reference's PredictStateIMU → SearchByProjection → PoseOptimization
+    → TrackLocalMap → PoseInertialOptimizationLastFrame in one step):
+
+      1. IMU state propagation from the previous frame's body state through
+         the per-frame preintegration;
+      2. last-frame candidates matched at the predicted pose
+         (``match_rows_dual``: radius and 2x radius in one launch) → visual
+         pose LM with a weak prior anchored at the prediction;
+      3. local-map candidates matched at the refined pose (``match_rows``);
+      4. ``vi_ba.pose_inertial_optimize``: pose + velocity + biases against
+         the previous 15-dim state with the carried marginal prior.
+
+    fn(vi_state (247,) f32, ids (CL+CC,) int32, mpf, mpu, feat_xy, feat_desc,
+       feat_octave, feat_valid, feat_ur, pre: PreintState, *, cl) → packed
+    int32, the reference's layout:
+      [0:12]=bits(R,t), [12]=n1, [13]=n_inl, [14:14+N]=a_last,
+      [14+N:14+2N]=a_loc, packbits(frustum over CC), packbits(inlier),
+      then bits of v(3), bg(3), ba(3), H_marg(225).
+
+    vi_state = [R1_wb(9), p1_wb(3), v1(3), bg(3), ba(3), prior_H(225),
+                prior_eps_visual(1)]."""
+    from ..ops import imu as imu_ops
+    from ..ops import pose_opt as pose_ops
+    from ..ops import vi_ba as vi_ops
+    device = torch.device(device)
+    sf, _ = _levels(scale, n_levels, device)
+    inv_s2_lut = 1.0 / (sf * sf)
+    camp = torch.tensor(cam_params, dtype=torch.float32, device=device)
+    whv = torch.tensor(wh, dtype=torch.float32, device=device)
+    _match = _make_pool_matcher(cam_type, n_levels, scale, camp, whv, device)
+
+    def fn(vi_state, ids, mpf, mpu, feat_xy, feat_desc, feat_octave, feat_valid,
+           feat_ur, pre, *, cl: int):
+        N = feat_xy.shape[0]
+        R1_wb = vi_state[0:9].reshape(3, 3)
+        p1_wb = vi_state[9:12]
+        v1 = vi_state[12:15]
+        bg = vi_state[15:18]
+        ba = vi_state[18:21]
+        prior_H = vi_state[21:246].reshape(15, 15)
+        prior_eps = vi_state[246]
+        inv_s2 = inv_s2_lut[torch.clamp(feat_octave, 0, n_levels - 1).long()]
+
+        # 1. PredictStateIMU through the deltas corrected to the current bias
+        dR_c, dV_c, dP_c = imu_ops.corrected_delta(pre, bg, ba)
+        g = imu_ops.gravity_vec(torch.float32, device)
+        dT = pre.dT
+        R2_wb = R1_wb @ dR_c
+        p2_wb = p1_wb + v1 * dT + 0.5 * g * dT * dT + R1_wb @ dP_c
+        v2 = v1 + g * dT + R1_wb @ dV_c
+        R0 = R2_wb.T
+        t0 = -R2_wb.T @ p2_wb
+
+        ids_l, ids_c = ids[:cl], ids[cl:]
+        l_xyz, l_desc, l_norm, l_mind, l_maxd, l_valid = _gather_pool(mpf, mpu, ids_l)
+        c_xyz, c_desc, c_norm, c_mind, c_maxd, c_valid = _gather_pool(mpf, mpu, ids_c)
+
+        # 2. last-frame points at the IMU-predicted pose; the visual LM refines
+        idx1, ok1, _ = _match(l_xyz, l_desc, l_norm, l_mind, l_maxd, l_valid,
+                              R0, t0, feat_xy, feat_desc, feat_octave, feat_valid,
+                              motion_radius, motion_ratio, th_high, 0.5, retry_min=20)
+        a_last = _assign(N, idx1, ok1, device)
+        m1 = a_last >= 0
+        pts1 = l_xyz[torch.clamp(a_last, min=0).long()]
+        res1 = pose_ops.pose_optimize(
+            R0, t0, pts1, feat_xy, inv_s2, m1 & feat_valid, camp,
+            cam_type=cam_type, rounds=pose_rounds, iters=pose_iters,
+            obs_ur=feat_ur, bf=bf, prior_R=R0, prior_t=t0, prior_eps=prior_eps)
+        a_last = torch.where(res1.inlier & m1, a_last, -1)
+
+        # 3. local-map points at the refined pose
+        idx2, ok2, frustum2 = _match(c_xyz, c_desc, c_norm, c_mind, c_maxd, c_valid,
+                                     res1.R, res1.t, feat_xy, feat_desc, feat_octave,
+                                     feat_valid & (a_last < 0), local_radius,
+                                     local_ratio, th_high, 0.5)
+        a_loc = _assign(N, idx2, ok2, device)
+        a_loc = torch.where(a_last >= 0, -1, a_loc)
+        m2 = (a_last >= 0) | (a_loc >= 0)
+        pts2 = torch.where((a_last >= 0)[:, None],
+                           l_xyz[torch.clamp(a_last, min=0).long()],
+                           c_xyz[torch.clamp(a_loc, min=0).long()])
+
+        # 4. visual-inertial frame optimization with the marginal prior
+        res2 = vi_ops.pose_inertial_optimize(
+            res1.R, res1.t, v2, R1_wb, p1_wb, v1, bg, ba, dT, dR_c, dV_c, dP_c,
+            pre.JRg, pre.JVg, pre.JVa, pre.JPg, pre.JPa, pre.C[:9, :9],
+            pts2, feat_xy, inv_s2, m2 & feat_valid, camp,
+            cam_type=cam_type, sigma_gw=sigma_gw, sigma_aw=sigma_aw, prior_H=prior_H)
+        a_last = torch.where(res2.inlier, a_last, -1)
+        a_loc = torch.where(res2.inlier, a_loc, -1)
+        n1 = torch.sum((m1 & feat_valid), dtype=torch.int32)
+        return torch.cat([
+            f32_bits(res2.R.reshape(-1)),
+            f32_bits(res2.t),
+            torch.stack([n1, res2.n_inliers.to(torch.int32)]),
+            a_last, a_loc,
+            _pack_bits_i32(frustum2),
+            _pack_bits_i32(res2.inlier),
+            f32_bits(res2.v), f32_bits(res2.bg), f32_bits(res2.ba),
+            f32_bits(res2.H_marg.reshape(-1)),
         ])
 
     return fn

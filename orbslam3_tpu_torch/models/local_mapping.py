@@ -17,7 +17,14 @@ abort check between them. ``_fuse_into`` is the loop closer's SearchAndFuse
 and the merge's weld. A rig with depth (stereo, RGB-D) adds the right-column
 rows to BA (``bf``) and keeps close points in keyframe culling (the tracker's
 ``th_depth``); a two-camera fisheye rig (``rig``) adds the second camera's
-rows. The sharded and inertial branches are not ported (ROADMAP.md).
+rows. On a visual-inertial map (``inertial``, the tracker, with its IMU on)
+the mapper drives the IMU staging after each round (``_inertial_stage``:
+the inertial-only initialization followed by a whole-map inertial BA, the
+bad-IMU check, VIBA1 and VIBA2, the monocular scale refinement), replaces
+local BA by the joint landmark + pose / velocity / bias BA over the last
+``vi_window`` keyframes once initialized (``local_inertial_ba``), and keeps
+the temporal chain in keyframe culling (composing the preintegrations across
+a culled keyframe). The sharded branch is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -26,6 +33,8 @@ import torch
 
 from .. import native, resolve_device
 from ..ops import ba as ba_ops
+from ..ops import imu as imu_ops
+from ..ops import vi_ba as vi_ops
 from ..utils.timing import StageTimer
 from . import kernels
 from .device_map import kf_pool_for, mirror_for
@@ -52,6 +61,14 @@ class LocalMapper:
         self.stats = {"triangulated": 0, "culled_mp": 0, "ba_runs": 0}
         # Tracker backref: trajectory re-anchoring when a keyframe is culled
         self.tracker = None
+        # inertial: the tracker (it owns the biases and the preintegrations),
+        # bound by the system; the IMU staging runs here, as in the
+        # reference's LocalMapping thread
+        self.inertial = None
+        self.preserve_temporal_chain = False
+        self.vi_window = 10
+        # bad-IMU hook (reference mbBadImu: the system resets the active map)
+        self.on_bad_imu = None
         self.kf_cull_redundancy = 0.9
         self.timer = StageTimer()
         # fn(R_rel, t_rel) after a propagated global BA, under the map lock:
@@ -118,9 +135,17 @@ class LocalMapper:
             self.search_in_neighbors(kf_id)
         if abort_check is None or not abort_check():
             with self.timer.stage("9.local_ba"):
-                self.local_ba(kf_id)
+                if self.inertial is not None and self.inertial.imu_initialized:
+                    # LocalInertialBA replaces the visual local BA once the
+                    # map is IMU-initialized
+                    self.local_inertial_ba(kf_id)
+                else:
+                    self.local_ba(kf_id)
             with m.lock, self.timer.stage("10.kf_culling"):
                 self.cull_keyframes(kf_id)
+        if self.inertial is not None and self.inertial.imu_enabled:
+            with m.lock:
+                self._inertial_stage(kf_id)
         return kf_id
 
     def _renormalize_initial_scale(self, kf_id: int):
@@ -416,8 +441,14 @@ class LocalMapper:
         if redundancy is None:
             redundancy = self.kf_cull_redundancy
         m = self.map
-        # a rig with depth counts only close points (the reference's ThDepth)
         tr = self.tracker
+        inertial = (self.inertial is not None and self.inertial.imu_enabled
+                    and self.preserve_temporal_chain)
+        # in inertial mode nothing is culled while the map holds <= 21
+        # keyframes (the IMU init needs the dense temporal chain)
+        if inertial and len(m.valid_kf_ids()) <= 21:
+            return
+        # a rig with depth counts only close points (the reference's ThDepth)
         th_depth = float(getattr(tr, "th_depth", 0.0) or 0.0) if self.bf > 0 else 0.0
 
         def redundancy_counts(cands):
@@ -454,15 +485,41 @@ class LocalMapper:
                 k = int(candidates[i])
                 if tot[i] < 20 or red[i] <= redundancy * tot[i]:
                     break
-                if self.tracker is not None:
-                    self.tracker.reanchor_trajectory(k)
-                m.remove_keyframe(k)
-                self.stats["culled_kf"] = self.stats.get("culled_kf", 0) + 1
-                n_culled += 1
-                culled_this_round = True
-                break
+                if self._cull_one_keyframe(k, inertial):
+                    n_culled += 1
+                    culled_this_round = True
+                    break
             if not culled_this_round:
                 return
+
+    def _cull_one_keyframe(self, k: int, inertial: bool) -> bool:
+        """Apply the temporal-chain guards of an inertial map, then remove
+        keyframe ``k``."""
+        m = self.map
+        if inertial:
+            tr = self.inertial
+            valid = m.valid_kf_ids()
+            pos = np.searchsorted(valid, k)
+            # never the first, nor the head of the temporal chain (the
+            # reference's mnId > mnId-2 guard)
+            if pos == 0 or pos >= len(valid) - 3:
+                return False
+            prev_k = int(valid[pos - 1])
+            next_k = int(valid[pos + 1])
+            limit = 3.0 if tr.viba2_done else 0.5
+            if float(m.kf_ts[next_k] - m.kf_ts[prev_k]) > limit:
+                return False
+            # merge the preintegration chain across the culled keyframe
+            pk = tr.kf_preints.get(k)
+            pn = tr.kf_preints.get(next_k)
+            if pk is not None and pn is not None:
+                tr.kf_preints[next_k] = imu_ops.compose(pk, pn)
+            tr.kf_preints.pop(k, None)
+        if self.tracker is not None:
+            self.tracker.reanchor_trajectory(k)
+        m.remove_keyframe(k)
+        self.stats["culled_kf"] = self.stats.get("culled_kf", 0) + 1
+        return True
 
     # ------------------------------------------------------------------
     def local_ba(self, kf_id: int, iters: tuple[int, int] = (5, 10)):
@@ -594,6 +651,229 @@ class LocalMapper:
                     cam_params2=self._dev(self.rig["cam_r"].astype(np.float32)),
                     R_rl=self._dev(self.rig["R_rl"].astype(np.float32)),
                     t_rl=self._dev(self.rig["t_rl"].astype(np.float32)))
+
+    # ------------------------------------------------------------------
+    # inertial
+    # ------------------------------------------------------------------
+    def _inertial_stage(self, kf_id: int):
+        """IMU initialization staging (reference LocalMapping::Run's inertial
+        block): InitializeIMU followed by a whole-map inertial BA → the
+        bad-IMU check → VIBA1 at mTinit > 5 s (priors 1, 1e5) → VIBA2 at
+        > 15 s (priors 0, 0) → scale-refinement passes every ~10 s while the
+        map holds <= 100 keyframes (monocular only)."""
+        tr = self.inertial
+        m = self.map
+        if not tr.imu_enabled:
+            return
+        if not tr.imu_initialized:
+            with self.timer.stage("15.imu_init"):
+                done = tr.try_imu_init()
+            if done:
+                # the reference's InitializeIMU ends with FullInertialBA(100);
+                # the joint BA is also the scale estimator here
+                self.full_inertial_ba(kf_id, iters=30, prior_g=1e2,
+                                      prior_a=1e10 if self.bf <= 0 else 1e5)
+            return
+        ts = float(m.kf_ts[kf_id])
+        tinit = ts - tr.imu_init_ts
+        # bad IMU: within 10 s of the init and before VIBA2, near-zero travel
+        # over the last three keyframes means an under-excited init
+        valid = m.valid_kf_ids()
+        if (not tr.viba2_done and tinit < 10.0 and len(valid) >= 3
+                and self.on_bad_imu is not None):
+            c = [-m.kf_R[k].T @ m.kf_t[k] for k in (int(valid[-3]), int(valid[-2]),
+                                                    int(valid[-1]))]
+            dist = float(np.linalg.norm(c[2] - c[1])) + float(np.linalg.norm(c[1] - c[0]))
+            if dist < 0.02:
+                self.stats["bad_imu_resets"] = self.stats.get("bad_imu_resets", 0) + 1
+                self.on_bad_imu()
+                return
+        # VIBA1 / VIBA2: whole-map inertial BAs with annealed bias priors
+        if not tr.viba1_done and tinit > 5.0:
+            self.full_inertial_ba(kf_id, iters=12, prior_g=1.0, prior_a=1e5)
+            self.stats["viba1"] = 1
+            tr.viba1_done = True
+        elif not tr.viba2_done and tinit > 15.0:
+            self.full_inertial_ba(kf_id, iters=12, prior_g=0.0, prior_a=0.0)
+            self.stats["viba2"] = 1
+            tr.viba2_done = True
+        elif (self.bf <= 0 and tr.viba2_done and m.n_kf <= 100
+              and ts - max(tr.imu_init_ts + 15.0, tr.last_scale_refine_ts) > 10.0):
+            tr.last_scale_refine_ts = ts
+            self.full_inertial_ba(kf_id, iters=8, prior_g=1e2, prior_a=1e5)
+            self.stats["scale_refines"] = self.stats.get("scale_refines", 0) + 1
+
+    def local_inertial_ba(self, kf_id: int, iters: int = 8):
+        """Local inertial BA (reference LocalInertialBA: a temporal window of
+        ``vi_window`` keyframes linked by preintegration edges plus the
+        visual edges, the window's first keyframe fixed with its velocity and
+        biases) as one joint landmark + pose / velocity / bias Schur solve."""
+        with self.timer.stage("9i.local_inertial_ba"):
+            self._run_vi_joint(kf_id, window=self.vi_window, iters=iters,
+                               fix_vel_bias_of_fixed=True)
+
+    def full_inertial_ba(self, kf_id: int, iters: int = 12, prior_g: float = 1e2,
+                         prior_a: float = 1e5, abort_check=None):
+        """Whole-map joint inertial BA (reference FullInertialBA): every
+        valid keyframe, the first pose fixed, bias priors on the first
+        keyframe. A whole-map solve can rescale and re-gravity the world: a
+        pipelined dispatch in flight is dropped at consume (the tracker's
+        ``world_epoch``)."""
+        with self.timer.stage("16.full_inertial_ba"):
+            n = len(self.map.valid_kf_ids())
+            self._run_vi_joint(kf_id, window=n, iters=iters, fix_vel_bias_of_fixed=False,
+                               prior_g=prior_g, prior_a=prior_a, abort_check=abort_check)
+        if self.inertial is not None:
+            self.inertial.world_epoch += 1
+
+    def _run_vi_joint(self, kf_id: int, window: int, iters: int,
+                      fix_vel_bias_of_fixed: bool, prior_g: float = 0.0,
+                      prior_a: float = 0.0, abort_check=None):
+        tr = self.inertial
+        m = self.map
+        with m.lock:
+            snap_epoch = m.remap_epoch
+            data = self._gather_vi_joint(kf_id, window)
+        if data is None:
+            return
+        win, n_win, pts, o_src_kf, o_src_feat, n_obs, args = data
+        if abort_check is not None and abort_check():
+            return
+        # the solve runs on the gathered snapshot, outside the lock
+        res = vi_ops.vi_joint_ba(**args, cam_type=self.cam_type, iters=iters,
+                                 prior_g=prior_g, prior_a=prior_a,
+                                 fix_vel_bias_of_fixed=fix_vel_bias_of_fixed)
+        Kb = int(args["R0"].shape[0])
+        Pb = int(args["pts0"].shape[0])
+        Ob = int(args["obs_kf"].shape[0])
+        buf = kernels.f32_bits(torch.cat([
+            res.R.reshape(-1), res.t.reshape(-1), res.vels.reshape(-1), res.bg.reshape(-1),
+            res.ba.reshape(-1), res.pts.reshape(-1)]))
+        buf = torch.cat([buf, kernels._pack_bits_i32(res.obs_inlier)]).cpu().numpy()
+        f = buf[: Kb * 21 + Pb * 3].view(np.float32)
+        Rn = f[0: Kb * 9].reshape(Kb, 3, 3)
+        tn = f[Kb * 9: Kb * 12].reshape(Kb, 3)
+        vn = f[Kb * 12: Kb * 15].reshape(Kb, 3)
+        bgn = f[Kb * 15: Kb * 18].reshape(Kb, 3)
+        ban = f[Kb * 18: Kb * 21].reshape(Kb, 3)
+        ptsn = f[Kb * 21: Kb * 21 + Pb * 3].reshape(Pb, 3)
+        inl = kernels.unpack_bits_host(buf[Kb * 21 + Pb * 3:], Ob)[: n_obs]
+        if not (np.isfinite(Rn).all() and np.isfinite(tn).all() and np.isfinite(ptsn).all()):
+            return
+        if abort_check is not None and abort_check():
+            # aborted while the solve ran: no write-back
+            return
+        fixed = args["fixed_pose"].cpu().numpy()
+        with m.lock:
+            if m.remap_epoch != snap_epoch:
+                # the pools were compacted while the solve ran: stale ids
+                return
+            for i, k in enumerate(win):
+                if i >= n_win or fixed[i] or not m.kf_valid[k]:
+                    continue
+                m.kf_R[k] = Rn[i]
+                m.kf_t[k] = tn[i]
+                m.kf_vel[k] = vn[i]
+                if np.isfinite(bgn[i]).all() and np.isfinite(ban[i]).all():
+                    m.kf_bias_g[k] = bgn[i]
+                    m.kf_bias_a[k] = ban[i]
+            keep = m.mp_valid[pts]
+            m.mp_xyz[pts[keep]] = ptsn[: len(pts)][keep]
+            m.touch()
+            # the tracker predicts with the last keyframe's bias
+            if np.isfinite(bgn[n_win - 1]).all():
+                tr.imu_bias_g = bgn[n_win - 1].copy()
+                tr.imu_bias_a = ban[n_win - 1].copy()
+            bad = ~inl & (o_src_feat >= 0)
+            if bad.any():
+                m.kf_feat_mp[o_src_kf[bad], o_src_feat[bad]] = -1
+        self.stats["vi_ba_runs"] = self.stats.get("vi_ba_runs", 0) + 1
+
+    def _gather_vi_joint(self, kf_id: int, window: int):
+        """The temporal window, its preintegration chain, the landmarks and
+        the visual observations of the joint inertial BA, padded to the
+        reference package's buckets and uploaded."""
+        tr = self.inertial
+        m = self.map
+        kfs = [int(k) for k in m.valid_kf_ids() if k <= kf_id]
+        win = kfs[-window:]
+        n_win = len(win)
+        if n_win < 3:
+            return None
+        Kb = self._bucket(n_win, [5, 10, 15, 25, 50, 100, 200, 400])
+        if Kb is None:
+            win = win[-400:]
+            n_win = len(win)
+            Kb = 400
+        # the preintegration chain (pair i links win[i] → win[i+1])
+        zero = imu_ops.init_state(device=self.device)
+        links = [tr.kf_preints.get(k) for k in win[1:]]
+        present = [p for p in links if p is not None]
+        # every link's dT in one read-back
+        dts = iter(torch.stack([p.dT for p in present]).cpu().numpy() if present else [])
+        pre, pair_ok = [], []
+        for i in range(1, n_win):
+            k = win[i]
+            p = links[i - 1]
+            dt_kf = float(m.kf_ts[k] - m.kf_ts[win[i - 1]])
+            if p is not None and abs(float(next(dts)) - dt_kf) < 0.02:
+                pre.append(p)
+                pair_ok.append(True)
+            else:
+                pre.append(zero)
+                pair_ok.append(False)
+        if not any(pair_ok):
+            return None
+        while len(pre) < Kb - 1:
+            pre.append(zero)
+            pair_ok.append(False)
+        # the landmarks the window observes
+        pts = m.local_map_points(np.asarray(win, np.int32))[: self.ba_point_cap]
+        if len(pts) < 20:
+            return None
+        kf_idx, feat_idx = m.observations_of(pts)
+        obs_mp_global = m.kf_feat_mp[kf_idx, feat_idx]
+        kf_lut = np.full(m.cfg.max_keyframes, -1, np.int32)
+        kf_lut[np.asarray(win)] = np.arange(n_win)
+        mp_lut = np.full(m.cfg.max_map_points, -1, np.int32)
+        mp_lut[pts] = np.arange(len(pts))
+        sel = (kf_lut[kf_idx] >= 0) & (mp_lut[obs_mp_global] >= 0)
+        o_kf = kf_lut[kf_idx[sel]]
+        o_mp = mp_lut[obs_mp_global[sel]]
+        o_uv = m.kf_feat_xy[kf_idx[sel], feat_idx[sel]]
+        o_ur = m.kf_feat_ur[kf_idx[sel], feat_idx[sel]]
+        o_is2 = m.inv_level_sigma2[m.kf_feat_octave[kf_idx[sel], feat_idx[sel]]]
+        o_src_kf = kf_idx[sel]
+        o_src_feat = feat_idx[sel]
+        Pb = self._bucket(len(pts), [256, 512, 1024, 2048, 4096])
+        Ob = self._bucket(len(o_kf), [1024, 2048, 4096, 8192, 16384, 32768])
+        if Pb is None or Ob is None:
+            return None
+
+        def pad(a, n, fill=0):
+            out = np.full((n,) + a.shape[1:], fill, a.dtype)
+            out[: len(a)] = a
+            return self._dev(out)
+
+        R_pad = np.tile(np.eye(3, dtype=np.float32), (Kb, 1, 1))
+        R_pad[:n_win] = m.kf_R[win]
+        fixed = np.ones(Kb, bool)
+        fixed[1:n_win] = False
+        stack = {a: torch.stack([getattr(s, a) for s in pre])
+                 for a in ("dT", "dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa")}
+        args = dict(
+            R0=self._dev(R_pad), t0=pad(m.kf_t[win], Kb), vels0=pad(m.kf_vel[win], Kb),
+            bg0=pad(m.kf_bias_g[win], Kb), ba0=pad(m.kf_bias_a[win], Kb),
+            fixed_pose=self._dev(fixed), pts0=pad(m.mp_xyz[pts], Pb),
+            obs_kf=pad(o_kf.astype(np.int32), Ob), obs_mp=pad(o_mp.astype(np.int32), Ob),
+            obs_uv=pad(o_uv.astype(np.float32), Ob),
+            obs_ur=pad(o_ur.astype(np.float32), Ob, -1.0),
+            obs_inv_sigma2=pad(o_is2.astype(np.float32), Ob, 1.0),
+            obs_valid=pad(np.ones(len(o_kf), bool), Ob, False), bf=float(self.bf),
+            **stack, pre_cov=torch.stack([s.C[:9, :9] for s in pre]),
+            pair_valid=self._dev(np.asarray(pair_ok)),
+            cam_params=self._dev(np.asarray(tr.cam_params, np.float32)))
+        return np.asarray(win, np.int64), n_win, pts, o_src_kf, o_src_feat, len(o_kf), args
 
     # ------------------------------------------------------------------
     def global_ba(self, iters: tuple[int, int] = (4, 6), abort_check=None,

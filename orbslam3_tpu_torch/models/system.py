@@ -17,9 +17,13 @@ pipeline. Everything that reads tracker state from outside (``state``,
 ``stats``, the trajectory export, ``shutdown``) first flushes the pipeline.
 
 A rig with depth (``bf > 0``) closes loops and merges maps at a fixed scale.
+``enable_imu`` + ``track_stereo_inertial`` run the stereo-inertial sensor
+(the IMU samples since the last frame come with each frame; the mapper
+initializes the IMU and runs the inertial BAs; a bad-IMU verdict resets the
+active map through ``_on_bad_imu``).
 Every tensor lives on ``device``; ``device=None`` is the CUDA card, and there
 is no fallback to the CPU. Options this port does not have yet (the viewer,
-``pose_starts > 1``, the inertial sensors and the inertial post-loop BA) raise
+``pose_starts > 1``, monocular-inertial and the inertial post-loop BA) raise
 ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
@@ -106,6 +110,9 @@ class SlamSystem:
         self.mapper.timer = self.timer
         self.mapper.kf_cull_redundancy = self._kf_cull_redundancy
         self.mapper.tracker = self.tracker
+        self.mapper.inertial = self.tracker
+        self.mapper.preserve_temporal_chain = self.tracker.imu_enabled
+        self.mapper.on_bad_imu = self._on_bad_imu
         self.mapper.bf = self._bf
         self.mapper.rig = self.tracker.rig
         self.loop_closer = None
@@ -166,6 +173,23 @@ class SlamSystem:
         if getattr(self.tracker, "imu_initialized", False):
             _not_ported("the inertial post-loop BA (FullInertialBA)", "visual-inertial")
         return self.mapper.global_ba(abort_check=abort_check, propagate=propagate)
+
+    def _on_bad_imu(self):
+        """Insufficient motion after the IMU init (reference mbBadImu): the
+        inertial estimates are unusable, so the active map is reset. Runs in
+        the mapper's context, so the reset is inline; stale queued keyframes
+        are dropped by the runtime's map-identity check."""
+        tr = self.tracker
+        tr.imu_initialized = False
+        tr.viba1_done = False
+        tr.viba2_done = False
+        tr.velocity_w = None
+        tr.freeze_trajectory(mark_lost=True)
+        cur = self.atlas.current
+        idx = self.atlas.current_idx
+        self.atlas.maps[idx] = MapState(self.map_cfg, map_id=cur.map_id)
+        self._bind_map(self.atlas.maps[idx])
+        tr.reset_for_new_map(self.atlas.maps[idx])
 
     def _on_world_corrected(self, R_rel, t_rel):
         """After a propagated background global BA: shift the tracker's live
@@ -317,6 +341,25 @@ class SlamSystem:
         self.frame_times.append(t1 - t0)
         self.frame_spans.append((t0, t1))
         return info
+
+    def enable_imu(self, freq: float = 200.0, noise=(1.7e-4, 2e-3, 1e-5, 1e-4)):
+        """Visual-inertial mode (reference IMU_STEREO) for a rectified stereo
+        rig: the IMU rate and the (gyro, acc, gyro walk, acc walk) noise
+        densities."""
+        self.tracker.enable_imu(freq=freq, noise=noise)
+        self.mapper.preserve_temporal_chain = True
+
+    def track_monocular_inertial(self, img: np.ndarray, ts: float, imu_ts, imu_gyro,
+                                 imu_acc) -> dict:
+        _not_ported("visual-inertial, monocular", "visual-inertial, monocular")
+
+    def track_stereo_inertial(self, img_l: np.ndarray, img_r: np.ndarray, ts: float,
+                              imu_ts, imu_gyro, imu_acc) -> dict:
+        """Stereo-inertial step: queue the IMU samples since the last frame,
+        then track the stereo pair (reference System::TrackStereo with
+        vImuMeas)."""
+        self.tracker.grab_imu(imu_ts, imu_gyro, imu_acc)
+        return self.track_stereo(img_l, img_r, ts)
 
     def track_stereo(self, img_l: np.ndarray, img_r: np.ndarray, ts: float) -> dict:
         """Rectified stereo step (``bf`` = baseline·fx)."""

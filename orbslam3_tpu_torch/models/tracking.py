@@ -22,7 +22,17 @@ only, never on the whole device (the mapper thread may have work queued on
 its own stream). The pipelined stereo front end keeps each frame's right-x
 vector on the device for the fused step and brings it home the same way.
 
-Not ported yet (ROADMAP.md): the IMU paths (``_track_with_prediction``).
+Visual-inertial (a rectified stereo rig with ``enable_imu``): IMU samples
+queue per frame (``grab_imu``) and are preintegrated on the device between
+frames and between keyframes; the inertial-only initialization
+(``try_imu_init``) gravity-aligns the world and gives per-keyframe
+velocities and biases; afterwards a frame is tracked by the fused
+visual-inertial step (``kernels.fused_track_vi_pooled``: IMU prediction,
+both matching stages, the visual LM and the 15-dim pose-inertial solve
+with the marginal prior carried from frame to frame), or by the staged
+cascade from the IMU prediction, and a lost frame dead-reckons on the IMU
+for ``time_recently_lost`` seconds. Not ported yet (ROADMAP.md):
+monocular-inertial and the inertial RGB-D and fisheye-rig front ends.
 """
 from __future__ import annotations
 
@@ -35,6 +45,8 @@ import torch
 from .. import resolve_device
 from ..ops import camera as cam_ops
 from ..ops import features as feat_ops
+from ..ops import imu as imu_ops
+from ..ops import imu_init as imu_init_ops
 from ..ops import matching as match_ops
 from ..ops import pnp as pnp_ops
 from ..ops import stereo as stereo_ops
@@ -145,8 +157,36 @@ class Tracker:
                                  dtype=torch.float32, device=dev)
         self._sf_dev = None
 
-        # bumped on whole-world transforms (the reference's IMU alignment):
-        # a pipelined dispatch in flight across one is dropped at consume
+        # --- IMU state (visual-inertial; reference Tracking's IMU queue,
+        # PreintegrateIMU and PredictStateIMU) ---
+        self.imu_enabled = False
+        self.imu_freq = 200.0
+        self.imu_noise = (1.7e-4, 2e-3, 1e-5, 1e-4)  # (gyro, acc, gyro walk, acc walk)
+        self.imu_queue: list = []       # (ts, gyro(3), acc(3)) tuples
+        self.imu_initialized = False
+        # staging (reference mbIMU_BA1 / mbIMU_BA2 and mTinit)
+        self.imu_init_ts = 0.0
+        self.viba1_done = False
+        self.viba2_done = False
+        self.last_scale_refine_ts = 0.0
+        self.imu_bias_g = np.zeros(3, np.float32)
+        self.imu_bias_a = np.zeros(3, np.float32)
+        self.velocity_w: np.ndarray | None = None   # body velocity in world
+        # frame-to-frame marginal prior (reference ConstraintPoseImu): 15x15
+        # information on the last frame's state; None anchors it rigidly
+        self.pose_prior_H: np.ndarray | None = None
+        self.pose_prior_dT: float | None = None
+        self.kf_preints: dict = {}       # kf_id -> PreintState since the previous keyframe
+        self.preint_since_kf = None
+        self.frame_preint = None
+        # does frame_preint span the last frame gap (set on the host by
+        # _preintegrate_frame, so the fused-VI gate reads nothing back)
+        self._frame_preint_covers = False
+        self._frame_preint_dT = 0.0      # its dT, mirrored on the host
+        self._fused_track_vi = None      # built on the first visual-inertial fused frame
+        self.lost_ts: float | None = None   # ts of the OK → lost transition
+        # bumped on whole-world transforms (the IMU alignment, the inertial
+        # BAs): a pipelined dispatch in flight across one is dropped at consume
         self.world_epoch = 0
         self.init_frame: Frame | None = None
         self.last_frame: Frame | None = None
@@ -162,7 +202,8 @@ class Tracker:
         # frames tracked by the fused step (first try / synchronous retry
         # after a pipelined miss) / sent down the staged cascade / recovered
         # by _relocalize
-        self.path_counts = {"fused": 0, "fused_retry": 0, "staged": 0, "reloc_frames": 0}
+        self.path_counts = {"fused": 0, "fused_retry": 0, "staged": 0, "fused_vi": 0,
+                            "reloc_frames": 0}
         # Atlas hooks (set by the system): sustained loss, and relocalization
         # into a stored map (a success merges the current map into it)
         self.on_tracking_lost = None
@@ -208,6 +249,8 @@ class Tracker:
                 valid = self.map.valid_kf_ids()
                 r = int(valid[-1]) if len(valid) else -1
             self.ref_kf = r
+        self.kf_preints = {int(kf_remap[k]): v for k, v in self.kf_preints.items()
+                           if kf_remap[k] >= 0}
         new_traj = []
         for (ts, k, Rcr, tcr, lost) in self.trajectory:
             if k >= 0:
@@ -231,15 +274,273 @@ class Tracker:
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=self.device)
 
     # ------------------------------------------------------------------
+    # IMU (visual-inertial)
+    # ------------------------------------------------------------------
+    def enable_imu(self, freq: float = 200.0, noise=(1.7e-4, 2e-3, 1e-5, 1e-4)):
+        """Visual-inertial mode for a rectified stereo rig (reference
+        IMU_STEREO). The monocular and fisheye-rig inertial modes are not
+        ported yet."""
+        if self.bf <= 0:
+            raise NotImplementedError(
+                "visual-inertial, monocular is not ported to orbslam3_tpu_torch yet "
+                "(ROADMAP.md, Queue 1: visual-inertial, monocular)")
+        if self.rig is not None:
+            raise NotImplementedError(
+                "visual-inertial with a fisheye rig is not ported to orbslam3_tpu_torch "
+                "yet (ROADMAP.md, Queue 1: visual-inertial)")
+        self.imu_enabled = True
+        self.imu_freq = freq
+        self.imu_noise = noise
+
+    def grab_imu(self, ts, gyro, acc):
+        """Queue IMU samples (reference Tracking::GrabImuData)."""
+        for t, w, a in zip(np.atleast_1d(ts), np.atleast_2d(gyro), np.atleast_2d(acc)):
+            self.imu_queue.append((float(t), np.asarray(w, np.float32),
+                                   np.asarray(a, np.float32)))
+
+    def _preintegrate_frame(self, ts_prev: float, ts_cur: float, cap: int = 128):
+        """Preintegrate the queued samples in (ts_prev, ts_cur] on the device
+        (reference PreintegrateIMU); returns a PreintState or None. The buffer
+        holds the (at most ``cap``) samples themselves: the reference
+        package's padded slots are masked steps that leave the state as it was."""
+        eps = 1e-6  # float timestamp jitter must not drop boundary samples
+        take = [s for s in self.imu_queue if ts_prev + eps < s[0] <= ts_cur + eps]
+        self.imu_queue = [s for s in self.imu_queue if s[0] > ts_cur + eps]
+        self._frame_preint_covers = False
+        if not take:
+            return None
+        n = min(len(take), cap)
+        # the interval's length, summed on the host in the device's order
+        dT = np.float32(0.0)
+        t_prev = ts_prev
+        for t, _, _ in take[:n]:
+            dT = np.float32(dT + np.float32(t - t_prev))
+            t_prev = t
+        self._frame_preint_dT = float(dT)
+        # host-side coverage check (the samples' span against the frame gap)
+        self._frame_preint_covers = (
+            abs((take[n - 1][0] - ts_prev) - (ts_cur - ts_prev)) < 0.02)
+        buf = np.zeros((n + 1, 7), np.float32)    # [acc(3) | gyro(3) | dt], then the biases
+        t_last = ts_prev
+        for i, (t, w, a) in enumerate(take[:n]):
+            buf[i, 0:3] = a
+            buf[i, 3:6] = w
+            buf[i, 6] = t - t_last
+            t_last = t
+        buf[n, 0:3] = self.imu_bias_g
+        buf[n, 3:6] = self.imu_bias_a
+        d = self._dev(buf)
+        ng, na, wg, wa = self.imu_noise
+        return imu_ops.preintegrate(d[:n, 0:3], d[:n, 3:6], d[:n, 6], None, d[n, 0:3],
+                                    d[n, 3:6], ng, na, wg, wa, self.imu_freq)
+
+    def _accumulate_preint(self, st):
+        """Accumulate the per-frame preintegration into the since-last-keyframe
+        block (the reference keeps mpImuPreintegratedFromLastKF beside the
+        per-frame one)."""
+        if st is None:
+            return
+        if self.preint_since_kf is None:
+            self.preint_since_kf = st
+        else:
+            self.preint_since_kf = imu_ops.compose(self.preint_since_kf, st)
+
+    def _preintegrate_step(self, ts: float):
+        """The front ends' per-frame preintegration: from the last consumed
+        frame to this one, into the frame's and the keyframe's blocks."""
+        if self.imu_enabled and self.last_frame is not None:
+            with self.timer.stage("0.imu_preintegration"):
+                self.frame_preint = self._preintegrate_frame(self.last_frame.ts, ts)
+                self._accumulate_preint(self.frame_preint)
+
+    def _predict_pose_imu(self, frame: Frame, allow_untracked: bool = False) -> bool:
+        """IMU state propagation as the pose prediction (reference
+        PredictStateIMU). ``allow_untracked`` propagates from a last frame
+        whose own pose was only an IMU prediction (RECENTLY_LOST
+        dead-reckoning); the propagated velocity is then kept, so the chain
+        goes on across lost frames."""
+        lf = self.last_frame
+        if (self.frame_preint is None or lf is None or self.velocity_w is None
+                or lf.R is None or (not lf.tracked and not allow_untracked)):
+            return False
+        R_wb = lf.R.T
+        p_wb = -lf.R.T @ lf.t
+        R2, p2, v2 = imu_ops.predict_state(
+            self._dev(R_wb), self._dev(p_wb), self._dev(self.velocity_w), self.frame_preint,
+            self._dev(self.imu_bias_g), self._dev(self.imu_bias_a))
+        R2 = R2.cpu().numpy()
+        p2 = p2.cpu().numpy()
+        frame.R = R2.T.astype(np.float32)
+        frame.t = (-R2.T @ p2).astype(np.float32)
+        if allow_untracked:
+            self.velocity_w = v2.cpu().numpy().astype(np.float32)
+        return True
+
+    def try_imu_init(self, min_kfs: int = 8, prior_g: float | None = None,
+                     prior_a: float | None = None, refine: bool = False,
+                     fix_bias: bool = False) -> bool:
+        """Inertial-only MAP: gravity + scale + biases + velocities (reference
+        InitializeIMU). The first call gravity-aligns (and for a monocular
+        rig rescales) the map; ``refine`` re-estimates on an initialized map
+        with the given priors; ``fix_bias`` pins the biases with huge priors.
+        Same gates as the reference package: a contiguous preintegration
+        chain subsampled to >= 0.25 s links, >= 4 links, the scale range, and
+        for a monocular first init the time span and split-sample checks."""
+        m = self.map
+        if not self.imu_enabled or (self.imu_initialized and not refine):
+            return False
+        if refine and not self.imu_initialized:
+            return False
+        kfs = [int(k) for k in m.valid_kf_ids()]
+        chain0 = [k for k in kfs if k in self.kf_preints or k == kfs[0]]
+        if len(chain0) < min_kfs:
+            return False
+        # every link's dT in one read-back (a composed link's dT is the
+        # float32 sum, as compose adds it)
+        dts = dict(zip(chain0[1:], torch.stack(
+            [self.kf_preints[k].dT for k in chain0[1:]]).cpu().numpy()))
+        # contiguity: a link is usable only when its preintegration window
+        # matches the keyframe time gap
+        contig = [True] * len(chain0)
+        for i in range(1, len(chain0)):
+            dt_kf = float(m.kf_ts[chain0[i]] - m.kf_ts[chain0[i - 1]])
+            contig[i] = abs(float(dts[chain0[i]]) - dt_kf) < 0.015
+        # subsample to >= 0.25 s links, composing the preintegrations across
+        # the skipped keyframes (short links bury gravity and scale in noise)
+        chain, pre = [chain0[0]], []
+        acc_pre, acc_dt = None, np.float32(0.0)
+        for i in range(1, len(chain0)):
+            if not contig[i]:
+                acc_pre, acc_dt = None, np.float32(0.0)
+                chain, pre = [chain0[i]], []   # restart after a gap
+                continue
+            p_i = self.kf_preints[chain0[i]]
+            if acc_pre is None:
+                acc_pre, acc_dt = p_i, dts[chain0[i]]
+            else:
+                acc_pre = imu_ops.compose(acc_pre, p_i)
+                acc_dt = np.float32(acc_dt + dts[chain0[i]])
+            if float(acc_dt) >= 0.25 - 1e-6:
+                chain.append(chain0[i])
+                pre.append(acc_pre)
+                acc_pre, acc_dt = None, np.float32(0.0)
+        if len(chain) < 4:
+            return False
+        # monocular first-init time-span gate (the scale is not observable
+        # below ~2 s of travel)
+        if (self.bf <= 0 and not refine
+                and float(m.kf_ts[chain[-1]] - m.kf_ts[chain[0]]) < 2.2):
+            return False
+        R_wb = np.stack([m.kf_R[k].T for k in chain]).astype(np.float32)
+        p_wb = np.stack([-m.kf_R[k].T @ m.kf_t[k] for k in chain]).astype(np.float32)
+        pair_ok = torch.ones(len(pre), dtype=torch.bool, device=self.device)
+        stack = {a: torch.stack([getattr(s, a) for s in pre])
+                 for a in ("dT", "dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa")}
+        cov = torch.stack([s.C[:9, :9] for s in pre])
+        if prior_g is None:
+            prior_g = 1e2
+        if prior_a is None:
+            prior_a = 1e10 if self.bf <= 0 else 1e5
+        if fix_bias:
+            prior_g = prior_a = 1e12
+
+        def solve(valid, opt_scale):
+            return imu_init_ops.inertial_init(
+                self._dev(R_wb), self._dev(p_wb), stack["dT"], stack["dR"], stack["dV"],
+                stack["dP"], stack["JRg"], stack["JVg"], stack["JVa"], stack["JPg"],
+                stack["JPa"], valid, cov=cov, opt_scale=opt_scale, iters=40,
+                prior_g=prior_g, prior_a=prior_a)
+        res = solve(pair_ok, self.bf <= 0)
+        s = float(res.scale)
+        s_lo, s_hi = (0.02, 50.0) if not refine else (0.5, 2.0)
+        if not (s_lo < s < s_hi) or not np.isfinite(s):
+            return False
+        sub_span_ok = (len(pre) >= 6 and float(m.kf_ts[chain[(2 * len(pre)) // 3]]
+                                               - m.kf_ts[chain[0]]) >= 2.0)
+        if self.bf <= 0 and not refine and sub_span_ok and self.p.gate_init_split:
+            # split-sample consistency: the first-2/3 and last-2/3 sub-chains
+            # must agree on the scale within 2x
+            n_sub = max(4, (2 * len(pre)) // 3)
+            sub_scales = []
+            for mask_sel in (slice(0, n_sub), slice(len(pre) - n_sub, None)):
+                mask = torch.zeros(len(pre), dtype=torch.bool, device=self.device)
+                mask[mask_sel] = True
+                sub_scales.append(float(solve(pair_ok & mask, True).scale))
+            ratio = max(sub_scales) / max(min(sub_scales), 1e-9)
+            if not np.isfinite(ratio) or ratio > 2.0:
+                return False
+        Rwg = res.Rwg.cpu().numpy()
+        if refine:
+            # a refinement on a gravity-aligned map stays a small correction
+            ang = np.arccos(np.clip((np.trace(Rwg) - 1.0) / 2.0, -1.0, 1.0))
+            if ang > 0.35:
+                return False
+        # world' = s · Rgw · world with Rgw = Rwg⁻¹ (gravity → -z)
+        kfs_all = m.valid_kf_ids()
+        mps = m.valid_mp_ids()
+        Rn, tn, pn = imu_init_ops.apply_scaled_rotation(
+            self._dev(m.kf_R[kfs_all]), self._dev(m.kf_t[kfs_all]), self._dev(m.mp_xyz[mps]),
+            self._dev(Rwg.T), torch.tensor(s, dtype=torch.float32, device=self.device))
+        m.kf_R[kfs_all] = Rn.cpu().numpy()
+        m.kf_t[kfs_all] = tn.cpu().numpy()
+        m.mp_xyz[mps] = pn.cpu().numpy()
+        m.touch()
+        # the live frames and the velocity follow into the new world: the
+        # last frame and the in-flight current one (in the synchronous path
+        # the init runs inside the current frame's keyframe creation; a stale
+        # current frame makes the next IMU prediction dead-reckon from the
+        # old world: a guaranteed one-frame LOST right after init)
+        for fr in {id(f): f for f in (self.last_frame, self.current_frame)
+                   if f is not None and f.R is not None}.values():
+            fr.R = (fr.R @ Rwg).astype(np.float32)
+            fr.t = (fr.t * s).astype(np.float32)
+        # logged relative poses are scale-covariant: their translations follow
+        # (frozen k = -2 entries belong to a retired map)
+        self.trajectory = [
+            e if (e[1] == -2 or e[3] is None) else
+            (e[0], e[1], e[2], (e[3] * s).astype(np.float32), e[4])
+            for e in self.trajectory]
+        vels = res.vels.cpu().numpy()
+        # per-keyframe velocities: solved ones for the chain, finite
+        # differences of the corrected poses for the rest
+        ctr = -np.einsum("kij,ki->kj", m.kf_R[kfs_all].transpose(0, 2, 1), m.kf_t[kfs_all])
+        tss = m.kf_ts[kfs_all]
+        if len(kfs_all) >= 2:
+            dt = np.maximum(np.gradient(tss), 1e-3)
+            m.kf_vel[kfs_all] = (np.gradient(ctr, axis=0) / dt[:, None]).astype(np.float32)
+        v_chain = (s * (vels @ Rwg)).astype(np.float32)   # s·Rwgᵀ·v, rowwise
+        m.kf_vel[np.asarray(chain)] = v_chain
+        bg = res.bg.cpu().numpy().astype(np.float32)
+        ba = res.ba.cpu().numpy().astype(np.float32)
+        m.kf_bias_g[kfs_all] = bg
+        m.kf_bias_a[kfs_all] = ba
+        if self.velocity_w is not None or not refine:
+            self.velocity_w = v_chain[-1]
+        self.imu_bias_g = bg
+        self.imu_bias_a = ba
+        self.velocity = None       # the constant-velocity model is void across the rescale
+        self.pose_prior_H = None   # the marginal prior's frame changed under it
+        self.world_epoch += 1      # drop pipelined dispatches from the old world
+        if not self.imu_initialized:
+            self.imu_init_ts = float(m.kf_ts[kfs[-1]])
+        self.imu_initialized = True
+        return True
+
+    # ------------------------------------------------------------------
     def _timestamp_guard(self, ts: float):
-        """Backwards time or a >1 s gap abandons the current tracking episode."""
+        """Backwards time or a >1 s gap abandons the current tracking episode
+        (and every preintegration spanning it)."""
         lf = self.last_frame
         if lf is None or self.state == TrackState.NOT_INITIALIZED:
             return
         if ts < lf.ts or ts - lf.ts > 1.0:
             if self.on_tracking_lost is not None:
                 self.on_tracking_lost()
+            self.frame_preint = None
+            self.preint_since_kf = None
             self.velocity = None
+            self.velocity_w = None
+            self.pose_prior_H = None
             self.last_frame = None
 
     def process_frame(self, img: np.ndarray, ts: float) -> dict:
@@ -286,6 +587,10 @@ class Tracker:
         if len(self._pending) >= depth:
             info_prev = self._flush_one()
         self._timestamp_guard(ts)
+        # the preintegration spans [last consumed frame, this frame]: at depth
+        # 1 the previous frame is consumed by now, so the fused visual-inertial
+        # dispatch links consecutive frames as the staged path does
+        self._preintegrate_step(ts)
         with locked_current(self):
             if self.state == TrackState.NOT_INITIALIZED:
                 info_prev = self.flush_pending() or info_prev
@@ -407,6 +712,7 @@ class Tracker:
         self._timestamp_guard(ts)
         fid = self.n_frames
         self.n_frames += 1
+        self._preintegrate_step(ts)
         fl, ur, ok = self._stereo_device(img_l, img_r)
         frame = build_frame(fid, ts, fl)
         with self.timer.stage("2.stereo_match"):
@@ -491,6 +797,10 @@ class Tracker:
         """RGB-D front end: the depth sampled at each keypoint becomes a
         virtual right coordinate ur = u − bf/z (reference
         ComputeStereoFromRGBD). Sampled on the host, as the JAX package does."""
+        if self.imu_enabled:
+            raise NotImplementedError(
+                "visual-inertial RGB-D is not ported to orbslam3_tpu_torch yet "
+                "(ROADMAP.md, Queue 1: visual-inertial)")
         self._timestamp_guard(ts)
         fid = self.n_frames
         self.n_frames += 1
@@ -705,6 +1015,9 @@ class Tracker:
         self.last_kf_frame_id = f1.frame_id
         self._last_kf_ts = f1.ts
         self.velocity = None
+        # IMU accumulated before the map existed is dropped (the reference
+        # resets the from-last-keyframe preintegrator at initialization)
+        self.preint_since_kf = None
         self.state = TrackState.OK
 
     def _rand_sets(self, valid_idx: np.ndarray, iters: int, k: int) -> np.ndarray:
@@ -755,8 +1068,16 @@ class Tracker:
         fm[order[dup]] = -1
 
     def _can_fuse_track(self) -> bool:
-        return (self.state == TrackState.OK and self.last_frame is not None
-                and self.p.local_passes == 1 and self.velocity is not None)
+        if not (self.state == TrackState.OK and self.last_frame is not None
+                and self.p.local_passes == 1):
+            return False
+        if self.imu_initialized:
+            # the visual-inertial fused step needs a per-frame preintegration
+            # spanning exactly the frame gap and a tracked previous state
+            lf = self.last_frame
+            return (self.frame_preint is not None and self._frame_preint_covers
+                    and lf.tracked and lf.R is not None and self.velocity_w is not None)
+        return self.velocity is not None
 
     def _track(self, frame: Frame, allow_fused: bool = True) -> bool:
         self.current_frame = frame
@@ -772,16 +1093,25 @@ class Tracker:
             frame.feat_mp[:] = -1
             self.path_counts["staged"] += 1
             with self.timer.stage("3a.pose_prediction"):
-                if self.velocity is not None and self.last_frame is not None:
+                if self.imu_initialized and self._predict_pose_imu(frame):
+                    ok = self._track_with_prediction(frame)
+                if not ok and self.velocity is not None and self.last_frame is not None:
                     ok = self._track_motion_model(frame)
                 if not ok:
                     ok = self._track_reference_kf(frame)
         elif not ok:
-            # lost: relocalize against the BoW candidates and the recent
-            # keyframes, then into a stored map (which merges it back)
-            ok = self._relocalize(frame)
-            if not ok and self.try_cross_map_reloc is not None:
-                ok = self.try_cross_map_reloc(frame)
+            if (self.state == TrackState.RECENTLY_LOST and self.imu_initialized
+                    and self.lost_ts is not None
+                    and frame.ts - self.lost_ts <= self.p.time_recently_lost):
+                # IMU dead-reckoning stands in for relocalization for up to
+                # time_recently_lost seconds
+                ok = self._track_recently_lost_imu(frame)
+            if not ok:
+                # lost: relocalize against the BoW candidates and the recent
+                # keyframes, then into a stored map (which merges it back)
+                ok = self._relocalize(frame)
+                if not ok and self.try_cross_map_reloc is not None:
+                    ok = self.try_cross_map_reloc(frame)
 
         if ok and not getattr(frame, "_fused_done", False):
             with self.timer.stage("3b.track_local_map"):
@@ -890,6 +1220,17 @@ class Tracker:
             if inl_now > 0:
                 self.inlier_ema = (inl_now if self.inlier_ema is None
                                    else 0.9 * self.inlier_ema + 0.1 * inl_now)
+            # world body velocity for the IMU prediction: finite differences
+            # only before the IMU init; afterwards it is a state of the
+            # visual-inertial solve
+            if (self.imu_enabled and not self.imu_initialized
+                    and self.last_frame is not None
+                    and self.last_frame.tracked and self.last_frame.R is not None):
+                dt = frame.ts - self.last_frame.ts
+                if dt > 1e-6:
+                    c_now = -frame.R.T @ frame.t
+                    c_last = -self.last_frame.R.T @ self.last_frame.t
+                    self.velocity_w = ((c_now - c_last) / dt).astype(np.float32)
             if (self.last_frame is not None and self.last_frame.tracked
                     and self.last_frame.R is not None):
                 Rl, tl = self.last_frame.R, self.last_frame.t
@@ -905,12 +1246,21 @@ class Tracker:
             self.consecutive_lost = 0
         else:
             self.velocity = None
+            self.pose_prior_H = None
             self.inlier_ema = None
+            if self.state == TrackState.OK:
+                self.lost_ts = frame.ts
             self.state = (TrackState.RECENTLY_LOST if self.map.n_kf > 10
                           else TrackState.LOST)
             self.consecutive_lost += 1
-            if (self.consecutive_lost >= self.frames_to_new_map
-                    and self.on_tracking_lost is not None):
+            # with an initialized IMU the loss window is time-based (the
+            # reference's time_recently_lost); visual-only gives up after
+            # frames_to_new_map frames
+            if self.imu_initialized and self.lost_ts is not None:
+                new_map_due = frame.ts - self.lost_ts > self.p.time_recently_lost
+            else:
+                new_map_due = self.consecutive_lost >= self.frames_to_new_map
+            if new_map_due and self.on_tracking_lost is not None:
                 self.on_tracking_lost()
                 self.consecutive_lost = 0
 
@@ -921,7 +1271,11 @@ class Tracker:
                       else TrackState.RECENTLY_LOST)
         self.init_frame = None
         self.velocity = None
+        self.lost_ts = None
         self.ref_kf = int(new_map.valid_kf_ids()[-1]) if new_map.n_kf else -1
+        self.kf_preints = {}
+        self.preint_since_kf = None
+        self.pose_prior_H = None
         self.inlier_ema = None
 
     def _predict_pose(self, frame: Frame):
@@ -1008,6 +1362,31 @@ class Tracker:
         m = in_map if in_map is not None else self.map
         matched = frame.feat_mp >= 0
         lf = self.last_frame
+        # visual-inertial frame optimization once IMU-initialized (reference
+        # TrackLocalMap → PoseInertialOptimizationLastFrame)
+        if (self.imu_initialized and in_map is None and self.frame_preint is not None
+                and lf is not None and lf.tracked and lf.R is not None
+                and self.velocity_w is not None
+                and abs(self._frame_preint_dT - (frame.ts - lf.ts)) < 0.02):
+            mp = frame.feat_mp.copy()
+            pts = np.zeros((len(mp), 3), np.float32)
+            pts[matched] = m.mp_xyz[mp[matched]]
+            snap_R = None if frame.R is None else frame.R.copy()
+            snap_t = None if frame.t is None else frame.t.copy()
+            inl = self._optimize_frame_pose_vi(frame, pts, matched,
+                                               self.inv_sigma2[frame.octave])
+            if inl >= 15 or (0 <= inl and matched.sum() < 30):
+                return inl
+            if inl >= 0:
+                # the inertial solve collapsed despite plentiful visual
+                # matches (stale prior or velocity): drop the marginal prior
+                # and fall through to the visual-only solve for this frame
+                self.pose_prior_H = None
+                frame.feat_mp = mp
+                matched = frame.feat_mp >= 0
+                if snap_R is not None:
+                    frame.R = snap_R
+                    frame.t = snap_t
         use_prior = (lf is not None and lf is not frame and lf.tracked
                      and lf.R is not None and self.p.pose_prior_eps > 0.0
                      and self._last_track_healthy())
@@ -1051,9 +1430,138 @@ class Tracker:
         frame.feat_mp[matched & ~inl] = -1
         return int(out[12])
 
+    def _scaled_prior(self, dT_now: float) -> np.ndarray:
+        """The carried marginal prior in the walk units of this frame
+        interval: its bias blocks were built for ``pose_prior_dT``, and
+        information transforms as D·H·D with D = sqrt(dT_now / dT_prev) on
+        the bias coordinates."""
+        pH = self.pose_prior_H
+        dT_prev = self.pose_prior_dT
+        if dT_prev is not None and abs(dT_prev - dT_now) > 1e-6:
+            d = np.ones(15, np.float32)
+            d[9:15] = np.sqrt(dT_now / max(dT_prev, 1e-3))
+            pH = pH * d[:, None] * d[None, :]
+        return pH
+
+    def _optimize_frame_pose_vi(self, frame: Frame, pts, matched, inv_s2) -> int:
+        """Visual-inertial frame pose + velocity + bias optimization against
+        the last frame's state through the per-frame preintegration
+        (reference PoseInertialOptimizationLastFrame), one packed read-back.
+        Returns the inlier count, or -1 when the solve is not finite."""
+        from ..ops import vi_ba as vi_ops
+        pre = self.frame_preint
+        lf = self.last_frame
+        bg, ba = self._dev(self.imu_bias_g), self._dev(self.imu_bias_a)
+        dR_c, dV_c, dP_c = imu_ops.corrected_delta(pre, bg, ba)
+        prior = None
+        if self.pose_prior_H is not None:
+            prior = self._dev(self._scaled_prior(max(self._frame_preint_dT, 1e-3)),
+                              torch.float32)
+        v = self._dev(self.velocity_w)
+        res = vi_ops.pose_inertial_optimize(
+            self._dev(frame.R), self._dev(frame.t), v, self._dev(lf.R.T),
+            self._dev(-lf.R.T @ lf.t), v, bg, ba, pre.dT, dR_c, dV_c, dP_c,
+            pre.JRg, pre.JVg, pre.JVa, pre.JPg, pre.JPa, pre.C[:9, :9],
+            self._dev(pts), frame.dev.xy, self._dev(np.asarray(inv_s2, np.float32)),
+            self._dev(matched) & frame.dev.valid, self._dev(self.cam_params),
+            cam_type=self.cam_type, sigma_gw=float(self.imu_noise[2]),
+            sigma_aw=float(self.imu_noise[3]), prior_H=prior)
+        out = torch.cat([
+            kernels.f32_bits(torch.cat([res.R.reshape(-1), res.t, res.v, res.bg, res.ba,
+                                        res.H_marg.reshape(-1)])),
+            res.n_inliers.to(torch.int32)[None],
+            kernels._pack_bits_i32(res.inlier)]).cpu().numpy()
+        Rn = out[0:9].view(np.float32).reshape(3, 3).copy()
+        tn = out[9:12].view(np.float32).copy()
+        if not (np.isfinite(Rn).all() and np.isfinite(tn).all()):
+            self.pose_prior_H = None
+            return -1
+        frame.R = Rn
+        frame.t = tn
+        self.velocity_w = out[12:15].view(np.float32).copy()
+        bgn = out[15:18].view(np.float32)
+        ban = out[18:21].view(np.float32)
+        if np.isfinite(bgn).all() and np.isfinite(ban).all():
+            # frame-rate bias tracking through the random-walk chain
+            self.imu_bias_g = bgn.copy()
+            self.imu_bias_a = ban.copy()
+        # the marginalized information goes on to the next frame
+        Hm = out[21:246].view(np.float32).reshape(15, 15)
+        if np.isfinite(Hm).all():
+            self.pose_prior_H = Hm.copy()
+            self.pose_prior_dT = max(self._frame_preint_dT, 1e-3)
+        else:
+            self.pose_prior_H = None
+        n_inl = int(out[246])
+        N = len(frame.feat_mp)
+        inl = kernels.unpack_bits_host(out[247: 247 + (N + 31) // 32], N)
+        frame.feat_mp[matched & ~inl] = -1
+        return n_inl
+
+    def _track_recently_lost_imu(self, frame: Frame) -> bool:
+        """Dead-reckon on the IMU while RECENTLY_LOST and try to re-acquire
+        visually (the reference substitutes the predicted state for
+        relocalization for up to time_recently_lost). A frame that does not
+        re-acquire keeps the predicted pose, so the chain and the exported
+        trajectory stay continuous."""
+        if not self._predict_pose_imu(frame, allow_untracked=True):
+            return False
+        m = self.map
+        p = self.p
+        if self.ref_kf < 0 or not m.kf_valid[self.ref_kf]:
+            return False
+        kfs = np.unique(np.concatenate(
+            [[self.ref_kf], m.best_covisible(self.ref_kf, 10)])).astype(np.int64)
+        mps = m.local_map_points(kfs)
+        if len(mps) == 0:
+            return False
+        # a wider window than motion-model tracking: the prediction has drifted
+        n = self._project_and_assign(frame, mps, p.max_local_mps, 2.0 * p.motion_radius,
+                                     p.motion_ratio, p.th_high)
+        if n < p.min_motion_matches:
+            return False
+        inl = self._optimize_frame_pose(frame)
+        return inl >= p.min_motion_inliers
+
+    def _track_with_prediction(self, frame: Frame) -> bool:
+        """Track against the last frame's points from an already-set
+        predicted pose (the IMU prediction: reference TrackWithMotionModel
+        after PredictStateIMU)."""
+        p = self.p
+        last_mps = self.last_frame.feat_mp
+        mp_ids = np.unique(last_mps[last_mps >= 0])
+        mp_ids = mp_ids[self.map.mp_valid[mp_ids]]
+        if len(mp_ids) == 0:
+            return False
+        n = self._project_and_assign(frame, mp_ids, self.orb_cfg.total_capacity,
+                                     p.motion_radius, p.motion_ratio, p.th_high)
+        if n < p.min_motion_matches:
+            return False
+        inl = self._optimize_frame_pose(frame)
+        return inl >= p.min_motion_inliers
+
+    def _frame_gap(self, frame: Frame) -> float:
+        lf = self.last_frame
+        return float(frame.ts - lf.ts) if lf is not None else 0.05
+
+    def _get_fused_track_vi(self):
+        """The visual-inertial fused step, built on the first frame that
+        needs it."""
+        if self._fused_track_vi is None:
+            depth = max(1, int(self.p.pipeline_depth))
+            r_scale = 1.0 + 0.5 * (depth - 1)
+            self._fused_track_vi = kernels.fused_track_vi_pooled(
+                self.cam_type, self.orb_cfg.n_levels, self.orb_cfg.scale,
+                self._cam_key, self._wh_key, float(self.bf),
+                float(self.p.motion_radius * r_scale), float(self.p.local_radius * r_scale),
+                float(self.p.motion_ratio), float(self.p.local_ratio), int(self.p.th_high),
+                float(self.imu_noise[2]), float(self.imu_noise[3]), device=self.device)
+        return self._fused_track_vi
+
     def _track_fused(self, frame: Frame) -> bool:
-        """One fused device step (kernels.fused_track_pooled): both matching
-        stages and both pose LMs; falls back (False) on thin matches."""
+        """One fused device step (kernels.fused_track_pooled, or
+        fused_track_vi_pooled once IMU-initialized): both matching stages and
+        the pose solves; falls back (False) on thin matches."""
         pend = self._fused_dispatch(frame)
         if pend is None:
             return False
@@ -1070,7 +1578,14 @@ class Tracker:
             if len(vk) == 0:
                 return None
             self.ref_kf = int(vk[-1])
-        self._predict_pose(frame)
+        vi = self.imu_initialized
+        if not vi:
+            self._predict_pose(frame)
+        else:
+            # the IMU prediction runs inside the fused step; the host seed is
+            # the last pose, so that a fused miss falls back from a sane pose
+            frame.R = lf.R.copy()
+            frame.t = lf.t.copy()
         self._check_replaced_in_last_frame()
         last_mps = lf.feat_mp[lf.feat_mp >= 0]
         ids_last = np.unique(last_mps)
@@ -1091,18 +1606,40 @@ class Tracker:
         ids_packed[cap_l: cap_l + len(loc_ids)] = loc_ids
         mpf, mpu = self._mirror(m)
         dev = frame.dev
-        use_prior = (lf.tracked and lf.R is not None and p.pose_prior_eps > 0.0
-                     and self._last_track_healthy())
-        pR, pt = (lf.R, lf.t) if use_prior else (frame.R, frame.t)
-        pose_in = np.empty(25, np.float32)
-        pose_in[0:9] = frame.R.reshape(-1)
-        pose_in[9:12] = frame.t
-        pose_in[12:21] = np.asarray(pR).reshape(-1)
-        pose_in[21:24] = pt
-        pose_in[24] = p.pose_prior_eps if use_prior else 0.0
-        out_dev = self.fused_track(
-            self._dev(pose_in), self._dev(ids_packed), mpf, mpu,
-            dev.xy, dev.desc, dev.octave, dev.valid, self._frame_ur_dev(frame), cl=cap_l)
+        if vi:
+            # the previous body state, the biases and the carried marginal
+            # prior (reference PredictStateIMU inputs + ConstraintPoseImu)
+            st = np.empty(247, np.float32)
+            R1_wb = lf.R.T
+            st[0:9] = R1_wb.reshape(-1)
+            st[9:12] = -R1_wb @ lf.t
+            st[12:15] = self.velocity_w
+            st[15:18] = self.imu_bias_g
+            st[18:21] = self.imu_bias_a
+            if self.pose_prior_H is not None:
+                st[21:246] = self._scaled_prior(max(self._frame_gap(frame), 1e-3)).reshape(-1)
+            else:
+                # no carried prior (first frame after a keyframe or a world
+                # transform): the previous state is anchored rigidly, as the
+                # staged path's fixed previous state
+                st[21:246] = (1e10 * np.eye(15, dtype=np.float32)).reshape(-1)
+            st[246] = p.pose_prior_eps
+            out_dev = self._get_fused_track_vi()(
+                self._dev(st), self._dev(ids_packed), mpf, mpu, dev.xy, dev.desc,
+                dev.octave, dev.valid, self._frame_ur_dev(frame), self.frame_preint, cl=cap_l)
+        else:
+            use_prior = (lf.tracked and lf.R is not None and p.pose_prior_eps > 0.0
+                         and self._last_track_healthy())
+            pR, pt = (lf.R, lf.t) if use_prior else (frame.R, frame.t)
+            pose_in = np.empty(25, np.float32)
+            pose_in[0:9] = frame.R.reshape(-1)
+            pose_in[9:12] = frame.t
+            pose_in[12:21] = np.asarray(pR).reshape(-1)
+            pose_in[21:24] = pt
+            pose_in[24] = p.pose_prior_eps if use_prior else 0.0
+            out_dev = self.fused_track(
+                self._dev(pose_in), self._dev(ids_packed), mpf, mpu,
+                dev.xy, dev.desc, dev.octave, dev.valid, self._frame_ur_dev(frame), cl=cap_l)
         # start the packed result (and a pipelined stereo frame's ur, which
         # the keyframe policy reads) on its way to the host: non-blocking
         # copies into pinned memory and one event behind them. Consuming
@@ -1117,7 +1654,8 @@ class Tracker:
             out_dev = host
         return {"frame": frame, "out": out_dev, "ready": ready, "ids": ids_packed,
                 "n_loc": len(loc_ids), "cap_l": cap_l, "cap_c": cap_c, "map": m,
-                "epoch": m.remap_epoch, "wepoch": self.world_epoch}
+                "epoch": m.remap_epoch, "wepoch": self.world_epoch, "vi": vi,
+                "dT": max(self._frame_gap(frame), 1e-3)}
 
     def _fused_consume(self, pend) -> bool:
         p = self.p
@@ -1148,7 +1686,26 @@ class Tracker:
         al = out[14: 14 + N]
         ac = out[14 + N: 14 + 2 * N]
         off = 14 + 2 * N
-        frustum_bits = out[off: off + (cap_c + 31) // 32]
+        nw_f = (cap_c + 31) // 32
+        frustum_bits = out[off: off + nw_f]
+        if pend["vi"]:
+            # adopt the inertial state: velocity, biases and the 15-dim
+            # marginal prior for the next frame
+            off_vi = off + nw_f + (N + 31) // 32
+            vi_f = out[off_vi: off_vi + 234].view(np.float32)
+            v, bgn, ban = vi_f[0:3], vi_f[3:6], vi_f[6:9]
+            Hm = vi_f[9:234].reshape(15, 15)
+            if not np.isfinite(v).all():
+                return False
+            self.velocity_w = v.copy()
+            if np.isfinite(bgn).all() and np.isfinite(ban).all():
+                self.imu_bias_g = bgn.copy()
+                self.imu_bias_a = ban.copy()
+            if np.isfinite(Hm).all():
+                self.pose_prior_H = Hm.copy()
+                self.pose_prior_dT = pend["dT"]
+            else:
+                self.pose_prior_H = None
         frame.feat_mp[:] = -1
         sel_l = al >= 0
         frame.feat_mp[sel_l] = ids_packed[al[sel_l]]
@@ -1166,6 +1723,8 @@ class Tracker:
             self.ref_kf = int(np.argmax(np.bincount(kf_idx, minlength=m.n_kf)))
         self.n_local_inliers = inl
         frame._fused_done = True
+        if pend["vi"]:
+            self.path_counts["fused_vi"] += 1
         return True
 
     def _min_local_inliers(self) -> int:
@@ -1173,6 +1732,8 @@ class Tracker:
         of the running inlier average."""
         if 0 <= self.n_frames - 1 - self._last_reloc_frame_id < self.p.max_frames_between_kf:
             return max(self.p.min_local_inliers, 50)
+        if self.imu_initialized:
+            return 15
         base = self.p.min_local_inliers
         ema = self.inlier_ema
         if self.p.gate_ema_floor and ema is not None and ema > 3.0 * base:
@@ -1269,6 +1830,13 @@ class Tracker:
         m = self.map
         if self.ref_kf < 0:
             return False
+        last_kf_ts = float(m.kf_ts[self.ref_kf])
+        if self.last_kf_frame_id >= 0:
+            # the reference keyframe may be an older covisible one
+            last_kf_ts = max(last_kf_ts, self._last_kf_ts)
+        # before the IMU init the inertial cadence is a keyframe every 0.25 s
+        if self.imu_enabled and not self.imu_initialized:
+            return frame.ts - last_kf_ts >= 0.25
         if p.kf_interval_override > 0:
             ref_mps0 = m.kf_feat_mp[self.ref_kf]
             ref_mps0 = ref_mps0[ref_mps0 >= 0]
@@ -1308,15 +1876,23 @@ class Tracker:
         th_ref = 0.75
         if n_kfs < 2:
             th_ref = 0.4
-        elif is_mono:
+        elif is_mono and not self.imu_enabled:
             th_ref = p.ref_ratio
+        elif self.rig is not None:
+            th_ref = 0.75
+        elif self.imu_enabled and is_mono:
+            th_ref = 0.75 if n_tracked > 350 else 0.9
         c1a = frame.frame_id >= self.last_kf_frame_id + p.max_frames_between_kf
         c1b = frame.frame_id >= self.last_kf_frame_id + p.min_frames_between_kf and idle
-        c1c = not is_mono and (n_tracked < 0.25 * n_ref or need_close)
+        c1c = not is_mono and not self.imu_enabled and (n_tracked < 0.25 * n_ref or need_close)
         c2 = (n_tracked < th_ref * n_ref or need_close) and n_tracked > 15
+        # the inertial temporal and rescue triggers
+        c3 = self.imu_enabled and (frame.ts - last_kf_ts >= 0.5)
+        c4 = (self.imu_enabled and is_mono
+              and (15 < n_tracked < 75 or self.state == TrackState.RECENTLY_LOST))
         # a busy mapper gets no keyframe queued on top (the < 3 queue gate of
         # a rig with depth lives in mapper_accepting)
-        return bool((c1a or c1b or c1c) and c2 and idle)
+        return bool((((c1a or c1b or c1c) and c2) or c3 or c4) and idle)
 
     def _create_new_keyframe(self, frame: Frame):
         m = self.map
@@ -1328,9 +1904,28 @@ class Tracker:
         if self.bf > 0:
             self._spawn_close_points(frame, k)
             m.kf_feat_mp[k] = frame.feat_mp
+        if self.imu_enabled and self.preint_since_kf is not None:
+            self.kf_preints[k] = self.preint_since_kf
+            self.preint_since_kf = None
+            if self.device.type == "cuda":
+                # the mapper's thread reads it on its own stream: settle the
+                # tracker stream's work first (nothing else is queued on it
+                # at a keyframe's creation)
+                torch.cuda.current_stream().synchronize()
+        # after a keyframe the mapper re-optimizes the window: the
+        # frame-to-frame marginal prior is stale
+        self.pose_prior_H = None
+        if self.imu_enabled and self.velocity_w is not None:
+            m.kf_vel[k] = self.velocity_w
+            m.kf_bias_g[k] = self.imu_bias_g
+            m.kf_bias_a[k] = self.imu_bias_a
         self.ref_kf = k
         self.last_kf_frame_id = frame.frame_id
         self._last_kf_ts = frame.ts
+        # the IMU init and the visual-inertial BA staging run in the mapper;
+        # a tracker with no mapper wired initializes here
+        if self.imu_enabled and not self.imu_initialized and self.on_new_keyframe is None:
+            self.try_imu_init()
         if self.on_new_keyframe is not None:
             # the live frame keeps its own pose; corrections reach it through
             # the map points (see the reference)

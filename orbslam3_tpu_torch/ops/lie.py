@@ -7,6 +7,8 @@ selections, so every function is batched and free of host syncs.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 _EPS = 1e-8
@@ -272,3 +274,29 @@ def sim3_log(s, R, t) -> torch.Tensor:
          + B[..., None, None] * (W @ W))
     v = torch.linalg.solve(V, t[..., None])[..., 0]
     return torch.cat([w, v, sigma[..., None]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# forward-mode Jacobians
+# ---------------------------------------------------------------------------
+
+# PyTorch's forward-mode level is one per process: the tracker, the mapper
+# and the loop closer differentiate from their own threads, one at a time
+FORWARD_AD_LOCK = threading.Lock()
+
+
+def jacobian_fwd(fn, p: torch.Tensor):
+    """Value (m,) and Jacobian (m, n) of ``fn`` at ``p`` (n,), where ``fn``
+    maps a batch of parameter vectors (B, n) to residual vectors (B, m). One
+    forward pass on dual tensors carries the n tangent directions as the
+    batch (what ``jax.jacfwd`` computes); its primal is the value. A batched
+    dual tensor is never 0-dim, where this PyTorch's forward mode (and
+    ``torch.func.jacfwd``) returns float64 tangents for a division by a
+    Python float."""
+    import torch.autograd.forward_ad as fwAD
+    n = p.shape[-1]
+    basis = torch.eye(n, dtype=p.dtype, device=p.device)
+    with FORWARD_AD_LOCK, fwAD.dual_level():
+        x = fwAD.make_dual(p.expand(n, n).contiguous(), basis)
+        primal, tangent = fwAD.unpack_dual(fn(x))
+    return primal[0], tangent.T

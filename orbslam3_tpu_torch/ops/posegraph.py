@@ -54,7 +54,7 @@ def _edge_jacobians(args):
     zero = torch.zeros((7, E, 7), dtype=dtype, device=dev)
     basis = torch.eye(7, dtype=dtype, device=dev)[:, None, :].expand(7, E, 7)
     r = _edge_residual(zero[0], zero[0], *args)
-    with fwAD.dual_level():
+    with lie.FORWARD_AD_LOCK, fwAD.dual_level():
         x = fwAD.make_dual(zero, basis)
         d_i = fwAD.unpack_dual(_edge_residual(x, zero, *args)).tangent
         d_j = fwAD.unpack_dual(_edge_residual(zero, x, *args)).tangent

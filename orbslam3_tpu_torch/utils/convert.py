@@ -5,7 +5,10 @@ arrays of a reference ``MapState`` (``vars(m)``), the way weight conversion
 hands one model to two implementations; ``loop_closer_state_from`` does the
 same for a loop closer's keyframe database and loop state; ``config_from``
 converts the config dataclasses, whose field names and defaults the port
-keeps; ``rig_from`` converts a two-camera fisheye rig.
+keeps; ``rig_from`` converts a two-camera fisheye rig; ``preint_state_from``
+a preintegration state given as arrays and ``tracker_inertial_state_from``
+a tracker's inertial state (the map's per-keyframe velocities and biases
+come across with the map's arrays).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import dataclasses
 import numpy as np
 
 from ..models.map import MapConfig, MapState
+from ..ops.imu import PreintState
 
 
 def config_from(obj, cls):
@@ -75,4 +79,40 @@ def loop_closer_state_from(src, dst):
     dst.last_loop_kf = int(src.last_loop_kf)
     dst.rng.bit_generator.state = src.rng.bit_generator.state
     dst._db_invalidate()
+    return dst
+
+
+INERTIAL_KEYS = ("imu_enabled", "imu_freq", "imu_noise", "imu_initialized", "imu_init_ts",
+                 "viba1_done", "viba2_done", "last_scale_refine_ts", "imu_bias_g",
+                 "imu_bias_a", "velocity_w", "pose_prior_H", "pose_prior_dT", "world_epoch")
+
+
+def preint_state_from(src, device="cpu") -> PreintState:
+    """The port's ``PreintState`` from a reference one (or any object or
+    mapping with its twelve fields as arrays), float32 on ``device``."""
+    import torch
+    get = src.get if isinstance(src, dict) else (lambda k: getattr(src, k))
+    return PreintState(**{k: torch.as_tensor(np.array(get(k), np.float32, copy=True),
+                                             device=device)
+                          for k in PreintState._fields})
+
+
+def tracker_inertial_state_from(src, dst, device="cpu"):
+    """Carry a reference ``Tracker``'s inertial state into the port's ``dst``:
+    the IMU settings and staging flags, the biases, the world velocity, the
+    carried marginal prior, the keyframe preintegrations (``kf_preints``),
+    the running blocks (``preint_since_kf``, ``frame_preint``) and the IMU
+    queue, as copies. Returns ``dst``."""
+    for k in INERTIAL_KEYS:
+        v = getattr(src, k, None)
+        setattr(dst, k, np.array(v, np.float32, copy=True) if isinstance(v, np.ndarray) else v)
+    dst.kf_preints = {int(k): preint_state_from(v, device) for k, v in src.kf_preints.items()}
+    for k in ("preint_since_kf", "frame_preint"):
+        v = getattr(src, k, None)
+        setattr(dst, k, None if v is None else preint_state_from(v, device))
+    dst._frame_preint_covers = bool(getattr(src, "_frame_preint_covers", False))
+    dst._frame_preint_dT = (float(np.asarray(dst.frame_preint.dT.cpu()))
+                            if dst.frame_preint is not None else 0.0)
+    dst.imu_queue = [(float(t), np.array(w, np.float32), np.array(a, np.float32))
+                     for (t, w, a) in src.imu_queue]
     return dst

@@ -1,7 +1,7 @@
 """Reference runs of chip_smoke.py's system phases, the JAX package against the port.
 
     python3 scripts/reference_walks.py --package jax|torch
-        --phase slice|headline|loop|merge|drifted|stereo|rgbd|fisheye|stereo-merge
+        --phase slice|headline|loop|merge|drifted|stereo|vi|rgbd|fisheye|stereo-merge
         [--frames N] [--mapping sync|async] [--pipeline 0|1] [--loop-closing 0|1]
         [--width full|test] [--device cpu|cuda] [--repeat N] [--stop-after N]
         [--record FILE] [--deterministic]
@@ -40,6 +40,11 @@ the card with ``--device cuda``), at the same full-size configuration
   frames (right eye at baseline 0.11, bf = 0.11·fx, th_depth = 40, loop
   closing on), sync mapping and the pipeline unless ``--mapping`` /
   ``--pipeline`` say otherwise (chip_smoke.py runs it async);
+- ``vi``: bench.py::bench_vi_e2e's make_system() (the stereo rig of
+  ``stereo`` with enable_imu at 200 Hz and bench.py's IMU stream) on the
+  walk's first 80 frames, sync mapping unless ``--mapping`` says otherwise
+  (chip_smoke.py runs it async), the pipeline on: the IMU-init frame, the
+  metric ATE, the frames on the fused visual-inertial step, the keyframes;
 - ``rgbd``: the walk's first 20 frames with the renderer's depth, sync;
 - ``fisheye``: tests/test_e2e_fisheye.py's two-camera rig and monocular KB8
   orbits (512x512, their first 16 frames) with 1500 features, loop closing on;
@@ -242,7 +247,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--package", choices=("jax", "torch"))
     ap.add_argument("--phase", choices=("slice", "headline", "loop", "merge", "drifted",
-                                        "stereo", "rgbd", "fisheye", "stereo-merge"))
+                                        "stereo", "vi", "rgbd", "fisheye", "stereo-merge"))
     ap.add_argument("--frames", type=int, default=0, help="0: the phase's own length")
     ap.add_argument("--mapping", choices=("sync", "async"), default=None)
     ap.add_argument("--pipeline", type=int, choices=(0, 1), default=None)
@@ -301,6 +306,20 @@ def main():
             rec = cs.run_drifted_loop(device=opt.device)
         print(f"{opt.package} on {where}, drifted: {json.dumps(rec)}")
         print(json.dumps(dict(out, drifted=rec)))
+        return
+    if opt.phase == "vi":
+        n = opt.frames or cs.VI_FRAMES
+        walk_kw = dict(seed=1, n_clutter=4)
+        scene = cs.RoomScene(**walk_kw)
+        poses = cs.walk_trajectory(n, period=280)
+        jobs = [("walk", walk_kw, p, False) for p in poses]
+        jobs += [("walk", walk_kw, scene.stereo_pose(R, t, cs.STEREO_BASELINE), False)
+                 for (R, t) in poses]
+        views = cs.render_jobs(jobs, min(8, os.cpu_count() or 1))
+        slam, rec = cs.run_vi(scene, views[:n], views[n:], n, mapping, **kw)
+        slam.shutdown(print_times=False)
+        print(f"{name}: {json.dumps(rec)}")
+        print(json.dumps(dict(out, vi=rec)))
         return
     if opt.phase in ("stereo", "rgbd", "fisheye", "stereo-merge"):
         out.update(sensor_phase(cs, opt, kw, mapping, pipeline, lc, name, where))

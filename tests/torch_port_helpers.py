@@ -312,3 +312,137 @@ def check_depth_rig_keyframes_and_errors(runs):
     assert t["n_map_points"] > 0
     system = runs["torch"]["system"]
     assert system.tracker.bf > 0 and system.loop_closer.fix_scale
+
+
+# ---------------------------------------------------------------------------
+# the inertial solvers (test_torch_imu.py, test_torch_vi_ba.py)
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def imu_simulation(n_kf=10, kf_dt=0.25, hz=200, scale=0.25, g_tilt=(0.06, -0.04),
+                   bg=(0.004, -0.003, 0.002), ba=(0.03, -0.02, 0.05), seed=0):
+    """tests/test_imu_init.py::simulate's trajectory, IMU stream and keyframe
+    preintegrations (the JAX package's), with its so3 maps evaluated over the
+    whole stream in one call each instead of one call per sample. Returns
+    simulate's tuple: (R_map, p_map, preints, Rwg, scale, bg, ba, v at the
+    keyframes)."""
+    from orbslam3_tpu.ops import imu as imu_ops
+    from orbslam3_tpu.ops import lie
+    Rwg = np.asarray(lie.so3_exp(jnp.asarray([g_tilt[0], g_tilt[1], 0.0], jnp.float32)))
+    g_true = Rwg @ np.array([0, 0, -imu_ops.GRAVITY])
+    dt = 1.0 / hz
+    n_steps = int(n_kf * kf_dt * hz)
+    ts = np.arange(n_steps + 1) * dt
+    p = np.stack([0.8 * np.sin(1.1 * ts), 0.5 * np.sin(0.9 * ts + 1),
+                  0.3 * np.sin(0.7 * ts)], -1)
+    v = np.gradient(p, dt, axis=0)
+    a_w = np.gradient(v, dt, axis=0)
+    w = np.stack([0.2 * np.sin(0.5 * ts), 0.15 * ts * 0.1, 0.3 * np.sin(0.3 * ts)], -1)
+    R_wb = np.asarray(lie.so3_exp(jnp.asarray(w, jnp.float32)))
+    dRm = np.einsum("nji,njk->nik", R_wb[:-1], R_wb[1:])
+    gyro = np.asarray(lie.so3_log(jnp.asarray(dRm))).astype(np.float64) / dt
+    acc = np.einsum("nji,nj->ni", R_wb[:-1], (a_w[:-1] - g_true))
+    gyro_m = gyro + np.asarray(bg)
+    acc_m = acc + np.asarray(ba)
+    per = int(kf_dt * hz)
+    kf_idx = np.arange(0, n_steps + 1, per)[:n_kf]
+    preints = []
+    pre_fn = jax.jit(imu_ops.preintegrate, static_argnums=(6, 7, 8, 9, 10))
+    for i in range(len(kf_idx) - 1):
+        s0, s1 = kf_idx[i], kf_idx[i + 1]
+        preints.append(pre_fn(
+            jnp.asarray(acc_m[s0:s1], jnp.float32), jnp.asarray(gyro_m[s0:s1], jnp.float32),
+            jnp.full(s1 - s0, dt, jnp.float32), jnp.ones(s1 - s0, bool),
+            jnp.zeros(3), jnp.zeros(3), 1.7e-4, 2e-3, 1e-6, 1e-5, hz))
+    p_map = (p[kf_idx] @ Rwg) / scale
+    R_map = np.einsum("ij,kjl->kil", Rwg.T, R_wb[kf_idx])
+    return (R_map.astype(np.float32), p_map.astype(np.float32), preints, Rwg, scale,
+            np.asarray(bg), np.asarray(ba), v[kf_idx])
+
+
+# ---------------------------------------------------------------------------
+# stereo-inertial end to end (test_torch_e2e_stereo_inertial.py)
+# ---------------------------------------------------------------------------
+SI_SYNC_FRAMES = 36      # tests/test_e2e_stereo_inertial.py's run
+SI_PIPE_FRAMES = 11      # then pipelined, on the IMU-initialized map
+
+
+def stereo_inertial_runs() -> dict:
+    """tests/test_e2e_stereo_inertial.py's fixture (RoomScene(seed=2), the
+    0.6-radius forward orbit, stereo baseline 0.11 with bf = 0.11·fx, a
+    200 Hz IMU stream with gravity along the world's +y, 512 features,
+    dense_tracking_params(), loop closing off, sync mapping) through both
+    packages: its 36 frames with the tracker's pipeline off, then
+    ``SI_PIPE_FRAMES`` more with the pipeline on (TrackingParams.pipeline is
+    read per frame), so that the IMU-initialized frames ride the fused
+    visual-inertial step. Returns {"jax": record, "torch": record}; a
+    record holds the system, the per-frame states and IMU flags, the
+    IMU-init frame, the metric ATE over the first 36 frames and over all,
+    and the tracker's path counts after each part."""
+    import test_e2e_stereo_inertial as fx
+    from conftest import dense_tracking_params
+    from orbslam3_tpu.models.system import SlamSystem as JaxSlam
+    from orbslam3_tpu.utils.datasets import RoomScene
+    from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+    from orbslam3_tpu_torch.models.system import SlamSystem
+    from orbslam3_tpu_torch.models.tracking import TrackingParams
+    from orbslam3_tpu_torch.utils.convert import config_from
+    n_total = SI_SYNC_FRAMES + SI_PIPE_FRAMES
+    scene = RoomScene(seed=2, depth=6.0, half_w=4.0, half_h=2.5)
+    imu_ts, gyro, acc = fx.make_imu(n_total)
+    per = fx.IMU_HZ // int(fx.FPS)
+    frames, gt = [], []
+    for i in range(n_total):
+        R, t = fx.pose_at(i)
+        Rr, tr = scene.stereo_pose(R, t, fx.BASELINE)
+        frames.append((scene.render(R, t), scene.render(Rr, tr)))
+        gt.append(-R.T @ t)
+    gt = np.array(gt)
+    kw = dict(n_features=512, seed=0, bf=fx.BASELINE * scene.fx, th_depth=fx.BASELINE * 40,
+              enable_loop_closing=False)
+    jparams = dense_tracking_params()
+    out = {}
+    for name, system in (
+            ("jax", JaxSlam(scene.K, None, (scene.w, scene.h), tracking_params=jparams, **kw)),
+            ("torch", SlamSystem(scene.K, None, (scene.w, scene.h), device="cpu",
+                                 tracking_params=config_from(jparams, TrackingParams), **kw))):
+        system.enable_imu(freq=fx.IMU_HZ)
+        rec = dict(system=system, states=[], imu=[])
+        for i, (a, b) in enumerate(frames):
+            if i == SI_SYNC_FRAMES:
+                ts, _, t_wc, lost = system.export_trajectory()
+                rec["ate_sync"], rec["n_sync"] = evaluate_trajectory(
+                    np.arange(i) / fx.FPS, gt[:i], ts[~lost], t_wc[~lost], with_scale=False)
+                rec["paths_sync"] = dict(system.tracker.path_counts)
+                system.tracker.p.pipeline = True
+            s0, s1 = (i - 1) * per, i * per
+            if i == 0:
+                s0 = s1 = 0
+            system.track_stereo_inertial(a, b, ts=i / fx.FPS, imu_ts=imu_ts[s0:s1],
+                                         imu_gyro=gyro[s0:s1], imu_acc=acc[s0:s1])
+            rec["states"].append(system.tracker.state.name)
+            rec["imu"].append(bool(system.tracker.imu_initialized))
+        ts, _, t_wc, lost = system.export_trajectory()
+        rec["ate"], rec["n_assoc"] = evaluate_trajectory(
+            np.arange(n_total) / fx.FPS, gt, ts[~lost], t_wc[~lost], with_scale=False)
+        rec["init_frame"] = rec["imu"].index(True) if any(rec["imu"]) else None
+        rec["paths"] = dict(system.tracker.path_counts)
+        rec["stats"] = system.stats()
+        out[name] = rec
+    return out
+
+
+def jax_map_from_arrays(arrays: dict, cfg):
+    """A JAX-package ``MapState`` holding copies of a map's arrays and
+    counters (the reverse of ``utils.convert.map_state_from_arrays``)."""
+    from orbslam3_tpu.models import map as jmap
+    from orbslam3_tpu_torch.utils.convert import config_from
+    if not isinstance(cfg, jmap.MapConfig):
+        cfg = config_from(cfg, jmap.MapConfig)
+    m = jmap.MapState(cfg, map_id=int(arrays.get("map_id", 0)))
+    for name, val in arrays.items():
+        if isinstance(val, np.ndarray):
+            setattr(m, name, val.copy())
+        elif name in ("n_kf", "n_mp", "remap_epoch", "n_compactions", "n_grows",
+                      "device_version"):
+            setattr(m, name, int(val))
+    return m
