@@ -288,14 +288,29 @@ class BackgroundGBA:
         try:
             with torch.cuda.stream(self._stream):
                 if getattr(self.system.tracker, "imu_initialized", False):
-                    raise NotImplementedError(
-                        "the inertial global BA (FullInertialBA) is not ported to "
-                        "orbslam3_tpu_torch yet (ROADMAP.md, Queue 1: visual-inertial)")
-                self.applied = mapper.global_ba(iters=(4, self.iters),
-                                                abort_check=self._abort.is_set,
-                                                propagate=True)
+                    self.applied = self._run_inertial(mapper)
+                else:
+                    self.applied = mapper.global_ba(iters=(4, self.iters),
+                                                    abort_check=self._abort.is_set,
+                                                    propagate=True)
         except Exception as e:
             self.applied = False
             _error(mapper.stats, "gba_error", e)
         finally:
             self.running = False
+
+    def _run_inertial(self, mapper) -> bool:
+        """An IMU-initialized map's global pass: FullInertialBA with zero bias
+        priors in two chunks of 4 iterations, the abort flag checked before
+        each chunk and, inside the solve, before its write-back. No
+        propagation: the joint BA writes poses, velocities and biases of the
+        keyframes it solved. True when both chunks ran and no abort came."""
+        ids = self.map.valid_kf_ids()
+        if not len(ids):
+            return False
+        for _ in range(2):
+            if self._abort.is_set():
+                return False
+            mapper.full_inertial_ba(int(ids[-1]), iters=4, prior_g=0.0, prior_a=0.0,
+                                    abort_check=self._abort.is_set)
+        return not self._abort.is_set()

@@ -17,14 +17,17 @@ pipeline. Everything that reads tracker state from outside (``state``,
 ``stats``, the trajectory export, ``shutdown``) first flushes the pipeline.
 
 A rig with depth (``bf > 0``) closes loops and merges maps at a fixed scale.
-``enable_imu`` + ``track_stereo_inertial`` run the stereo-inertial sensor
-(the IMU samples since the last frame come with each frame; the mapper
-initializes the IMU and runs the inertial BAs; a bad-IMU verdict resets the
-active map through ``_on_bad_imu``).
+``enable_imu`` turns any rig inertial: ``track_monocular_inertial`` and
+``track_stereo_inertial`` hand the IMU samples since the last frame with
+each frame (``track_rgbd`` and ``track_stereo_fisheye`` preintegrate the
+samples queued by ``tracker.grab_imu``); the mapper initializes the IMU and
+runs the inertial BAs, a bad-IMU verdict resets the active map through
+``_on_bad_imu``, and on an IMU-initialized map the post-loop global pass is
+FullInertialBA(7), the loop closer's essential graph has 4 degrees of
+freedom and a merge welds with the inertial BA.
 Every tensor lives on ``device``; ``device=None`` is the CUDA card, and there
-is no fallback to the CPU. Options this port does not have yet (the viewer,
-``pose_starts > 1``, monocular-inertial and the inertial post-loop BA) raise
-``NotImplementedError`` naming the ROADMAP item.
+is no fallback to the CPU. The viewer is not ported yet: ``use_viewer=True``
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -167,11 +170,13 @@ class SlamSystem:
         self.tracker.on_new_keyframe = on_kf
 
     def run_post_loop_gba(self, kf_id: int, abort_check=None, propagate: bool = False) -> bool:
-        """The global consistency pass after a loop correction: visual global
-        BA. An IMU-initialized map takes FullInertialBA(7) in the reference,
-        which comes with the visual-inertial slice."""
+        """The global consistency pass after a loop correction: FullInertialBA(7)
+        with zero bias priors on an IMU-initialized map (a visual global BA
+        would move poses and points off the velocities and the
+        preintegration chain), the visual global BA otherwise."""
         if getattr(self.tracker, "imu_initialized", False):
-            _not_ported("the inertial post-loop BA (FullInertialBA)", "visual-inertial")
+            self.mapper.full_inertial_ba(kf_id, iters=7, prior_g=0.0, prior_a=0.0)
+            return True
         return self.mapper.global_ba(abort_check=abort_check, propagate=propagate)
 
     def _on_bad_imu(self):
@@ -201,6 +206,9 @@ class SlamSystem:
             R_old = lf.R.copy()
             lf.R = (R_old @ R_rel).astype(np.float32)
             lf.t = (R_old @ t_rel + lf.t).astype(np.float32)
+        if self.tracker.velocity_w is not None:
+            # T_rel maps the new world to the old: rotate the velocity back
+            self.tracker.velocity_w = (R_rel.T @ self.tracker.velocity_w).astype(np.float32)
 
     def _on_tracking_lost(self):
         """Sustained loss: store the map in the Atlas and start a new one, or
@@ -265,6 +273,7 @@ class SlamSystem:
                                           t_a.astype(np.float32), s_align=float(s))
             kf_map = self.atlas.last_merge_kf_map
             self.tracker.remap_trajectory_for_merge(kf_map)
+            self.tracker.rotate_world_state_for_merge(R_a, float(s))
             self._bind_map(self.atlas.current)
             self.tracker.map = self.atlas.current
             lf = self.tracker.last_frame
@@ -295,7 +304,12 @@ class SlamSystem:
             mapper._fuse_into(pts_nk, int(t), cap)
         m.refresh_map_points(pts_nk)
         meas = (m.kf_R.copy(), m.kf_t.copy())
-        mapper.local_ba(nk)
+        if getattr(self.tracker, "imu_initialized", False):
+            # the inertial weld (reference MergeInertialBA): a visual weld BA
+            # would move the window off its preintegration chain
+            mapper.local_inertial_ba(nk)
+        else:
+            mapper.local_ba(nk)
         if self.loop_closer is not None and m.kf_valid[: m.n_kf].sum() > 4:
             fixed = [nk] + [int(g) for g in group2]
             try:
@@ -325,6 +339,7 @@ class SlamSystem:
                     self.atlas.merge_current_into(old, R_a.astype(np.float32),
                                                   t_a.astype(np.float32))
                     tr.remap_trajectory_for_merge(self.atlas.last_merge_kf_map)
+                    tr.rotate_world_state_for_merge(R_a)
                 else:
                     tr.freeze_trajectory()
                     self.atlas.current_idx = self.atlas.maps.index(old)
@@ -343,15 +358,19 @@ class SlamSystem:
         return info
 
     def enable_imu(self, freq: float = 200.0, noise=(1.7e-4, 2e-3, 1e-5, 1e-4)):
-        """Visual-inertial mode (reference IMU_STEREO) for a rectified stereo
-        rig: the IMU rate and the (gyro, acc, gyro walk, acc walk) noise
-        densities."""
+        """Visual-inertial mode (reference IMU_MONOCULAR / IMU_STEREO, and the
+        inertial RGB-D and fisheye rigs): the IMU rate and the (gyro, acc,
+        gyro walk, acc walk) noise densities."""
         self.tracker.enable_imu(freq=freq, noise=noise)
         self.mapper.preserve_temporal_chain = True
 
     def track_monocular_inertial(self, img: np.ndarray, ts: float, imu_ts, imu_gyro,
                                  imu_acc) -> dict:
-        _not_ported("visual-inertial, monocular", "visual-inertial, monocular")
+        """Monocular-inertial step: queue the IMU samples since the last
+        frame, then track the image (reference System::TrackMonocular with
+        vImuMeas; pinhole or KB8 through ``cam_type``)."""
+        self.tracker.grab_imu(imu_ts, imu_gyro, imu_acc)
+        return self.track_monocular(img, ts)
 
     def track_stereo_inertial(self, img_l: np.ndarray, img_r: np.ndarray, ts: float,
                               imu_ts, imu_gyro, imu_acc) -> dict:

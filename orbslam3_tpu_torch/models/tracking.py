@@ -22,7 +22,7 @@ only, never on the whole device (the mapper thread may have work queued on
 its own stream). The pipelined stereo front end keeps each frame's right-x
 vector on the device for the fused step and brings it home the same way.
 
-Visual-inertial (a rectified stereo rig with ``enable_imu``): IMU samples
+Visual-inertial (any rig, after ``enable_imu``): IMU samples
 queue per frame (``grab_imu``) and are preintegrated on the device between
 frames and between keyframes; the inertial-only initialization
 (``try_imu_init``) gravity-aligns the world and gives per-keyframe
@@ -31,8 +31,10 @@ visual-inertial step (``kernels.fused_track_vi_pooled``: IMU prediction,
 both matching stages, the visual LM and the 15-dim pose-inertial solve
 with the marginal prior carried from frame to frame), or by the staged
 cascade from the IMU prediction, and a lost frame dead-reckons on the IMU
-for ``time_recently_lost`` seconds. Not ported yet (ROADMAP.md):
-monocular-inertial and the inertial RGB-D and fisheye-rig front ends.
+for ``time_recently_lost`` seconds. Every front end preintegrates
+(monocular, stereo, RGB-D, the fisheye rig); a monocular rig's first init
+also fixes the scale and rescales the map, the live frames and the logged
+trajectory.
 """
 from __future__ import annotations
 
@@ -277,17 +279,9 @@ class Tracker:
     # IMU (visual-inertial)
     # ------------------------------------------------------------------
     def enable_imu(self, freq: float = 200.0, noise=(1.7e-4, 2e-3, 1e-5, 1e-4)):
-        """Visual-inertial mode for a rectified stereo rig (reference
-        IMU_STEREO). The monocular and fisheye-rig inertial modes are not
-        ported yet."""
-        if self.bf <= 0:
-            raise NotImplementedError(
-                "visual-inertial, monocular is not ported to orbslam3_tpu_torch yet "
-                "(ROADMAP.md, Queue 1: visual-inertial, monocular)")
-        if self.rig is not None:
-            raise NotImplementedError(
-                "visual-inertial with a fisheye rig is not ported to orbslam3_tpu_torch "
-                "yet (ROADMAP.md, Queue 1: visual-inertial)")
+        """Visual-inertial mode (reference IMU_MONOCULAR / IMU_STEREO, and the
+        inertial RGB-D and fisheye-rig front ends): the IMU rate and the
+        (gyro, acc, gyro walk, acc walk) noise densities."""
         self.imu_enabled = True
         self.imu_freq = freq
         self.imu_noise = noise
@@ -549,6 +543,7 @@ class Tracker:
         self._timestamp_guard(ts)
         fid = self.n_frames
         self.n_frames += 1
+        self._preintegrate_step(ts)
         with self.timer.stage("1.orb_extraction"):
             frame = build_frame(fid, ts, self.extract(self._upload(img)))
         with locked_current(self):
@@ -774,6 +769,7 @@ class Tracker:
         self._timestamp_guard(ts)
         fid = self.n_frames
         self.n_frames += 1
+        self._preintegrate_step(ts)
         with self.timer.stage("1.orb_extraction"):
             fl = self.extract(self._upload(img_l))
             fr = self.extract(self._upload(img_r))
@@ -797,13 +793,10 @@ class Tracker:
         """RGB-D front end: the depth sampled at each keypoint becomes a
         virtual right coordinate ur = u − bf/z (reference
         ComputeStereoFromRGBD). Sampled on the host, as the JAX package does."""
-        if self.imu_enabled:
-            raise NotImplementedError(
-                "visual-inertial RGB-D is not ported to orbslam3_tpu_torch yet "
-                "(ROADMAP.md, Queue 1: visual-inertial)")
         self._timestamp_guard(ts)
         fid = self.n_frames
         self.n_frames += 1
+        self._preintegrate_step(ts)
         with self.timer.stage("1.orb_extraction"):
             frame = build_frame(fid, ts, self.extract(self._upload(img)))
         xi = np.clip(np.round(frame.xy[:, 0]).astype(int), 0, depth_map.shape[1] - 1)
@@ -1975,6 +1968,17 @@ class Tracker:
                 k = nk
             out.append((ts, k, Rcr, tcr, lost))
         self.trajectory = out
+        # the preintegration chain follows the migrated keyframe ids (its
+        # deltas are body-frame quantities: the ids change, the values do not)
+        if self.kf_preints:
+            self.kf_preints = {kf_map[int(k)]: v for k, v in self.kf_preints.items()
+                               if int(k) in kf_map}
+
+    def rotate_world_state_for_merge(self, R_align: np.ndarray, s_align: float = 1.0):
+        """Rotate and scale the tracker's world-frame inertial state into the
+        merge target's world (x_old = s·R_a·x_cur + t_a)."""
+        if self.velocity_w is not None:
+            self.velocity_w = (s_align * (R_align @ self.velocity_w)).astype(np.float32)
 
     def reanchor_trajectory(self, k: int):
         """Re-anchor logged frames whose reference keyframe is about to be

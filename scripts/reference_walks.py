@@ -1,8 +1,8 @@
 """Reference runs of chip_smoke.py's system phases, the JAX package against the port.
 
     python3 scripts/reference_walks.py --package jax|torch
-        --phase slice|headline|loop|merge|drifted|stereo|vi|rgbd|fisheye|stereo-merge
-        [--frames N] [--mapping sync|async] [--pipeline 0|1] [--loop-closing 0|1]
+        --phase slice|headline|loop|merge|drifted|stereo|vi|mono-vi|rgbd|fisheye|stereo-merge
+        [--frames N] [--features N] [--mapping sync|async] [--pipeline 0|1] [--loop-closing 0|1]
         [--width full|test] [--device cpu|cuda] [--repeat N] [--stop-after N]
         [--record FILE] [--deterministic]
     python3 scripts/reference_walks.py --compare JAX_FILE TORCH_FILE
@@ -45,6 +45,12 @@ the card with ``--device cuda``), at the same full-size configuration
   walk's first 80 frames, sync mapping unless ``--mapping`` says otherwise
   (chip_smoke.py runs it async), the pipeline on: the IMU-init frame, the
   metric ATE, the frames on the fused visual-inertial step, the keyframes;
+- ``mono-vi``: chip_smoke.py's cell 14, monocular-inertial on
+  tests/test_e2e_inertial.py's scene and orbit (58 frames, 512 features
+  unless ``--features``, 200 Hz IMU), sync mapping unless ``--mapping`` says
+  otherwise (chip_smoke.py runs it async), the pipeline on, loop closing on:
+  the IMU-init frame and scale, the metric and the scale-aligned ATE, the
+  frames on the fused visual-inertial step, the keyframes;
 - ``rgbd``: the walk's first 20 frames with the renderer's depth, sync;
 - ``fisheye``: tests/test_e2e_fisheye.py's two-camera rig and monocular KB8
   orbits (512x512, their first 16 frames) with 1500 features, loop closing on;
@@ -247,8 +253,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--package", choices=("jax", "torch"))
     ap.add_argument("--phase", choices=("slice", "headline", "loop", "merge", "drifted",
-                                        "stereo", "vi", "rgbd", "fisheye", "stereo-merge"))
+                                        "stereo", "vi", "mono-vi", "rgbd", "fisheye",
+                                        "stereo-merge"))
     ap.add_argument("--frames", type=int, default=0, help="0: the phase's own length")
+    ap.add_argument("--features", type=int, default=0,
+                    help="mono-vi: the features per frame (0: the phase's own)")
     ap.add_argument("--mapping", choices=("sync", "async"), default=None)
     ap.add_argument("--pipeline", type=int, choices=(0, 1), default=None)
     ap.add_argument("--loop-closing", type=int, choices=(0, 1), default=None,
@@ -288,7 +297,7 @@ def main():
     if where == "the card":
         print(cs.card_line())
     mapping = opt.mapping or ("async" if opt.phase == "headline" else "sync")
-    pipeline = bool(opt.phase in ("headline", "stereo") if opt.pipeline is None
+    pipeline = bool(opt.phase in ("headline", "stereo", "mono-vi") if opt.pipeline is None
                     else opt.pipeline)
     lc = bool(opt.phase != "slice" if opt.loop_closing is None else opt.loop_closing)
     out = {"package": opt.package, "phase": opt.phase, "device": opt.device,
@@ -320,6 +329,24 @@ def main():
         slam.shutdown(print_times=False)
         print(f"{name}: {json.dumps(rec)}")
         print(json.dumps(dict(out, vi=rec)))
+        return
+    if opt.phase == "mono-vi":
+        n = opt.frames or cs.MONO_VI_FRAMES
+        jobs = [("mono_vi", cs.MONO_VI_SCENE, cs.mono_vi_pose_at(i), False) for i in range(n)]
+        views = cs.render_jobs(jobs, min(8, os.cpu_count() or 1))
+        if opt.package == "jax":
+            from orbslam3_tpu.ops import imu_init as imu_init_module
+        else:
+            from orbslam3_tpu_torch.ops import imu_init as imu_init_module
+        slam, rec = cs.run_mono_vi(views, n, mapping, opt.features or cs.MONO_VI_FEATURES,
+                                   imu_init_module=imu_init_module,
+                                   enable_loop_closing=lc, **kw)
+        slam.shutdown(print_times=False)
+        print(f"{name}, {rec['n_features']} features: init frame {rec['imu_init_frame']}, "
+              f"scale {rec['init_scale']}, metric ATE {rec['ate']}, scale-aligned ATE "
+              f"{rec['ate_s']}, fused frames {rec['paths'].get('fused_vi')}, keyframes "
+              f"{rec['n_keyframes']}: {json.dumps(rec)}")
+        print(json.dumps(dict(out, mono_vi=rec)))
         return
     if opt.phase in ("stereo", "rgbd", "fisheye", "stereo-merge"):
         out.update(sensor_phase(cs, opt, kw, mapping, pipeline, lc, name, where))

@@ -1,6 +1,7 @@
 """The port's visual-inertial tracking and mapping steps against the JAX
 package's on one frozen IMU-initialized state, on the CPU:
-``kernels.fused_track_vi_pooled``, the tracker's ``_track_with_prediction``
+``kernels.fused_track_vi_pooled`` (for a stereo rig and, at ``bf = 0``,
+a monocular one, whose frames carry no right coordinate), the tracker's ``_track_with_prediction``
 and ``_track_recently_lost_imu`` (through ``_optimize_frame_pose_vi`` and the
 pooled visual solve), and ``LocalMapper._inertial_stage`` through VIBA1,
 VIBA2, the monocular scale refinement (``bf = 0``) and the bad-IMU reset.
@@ -417,3 +418,42 @@ def test_map_remap_timestamp_guard_and_chain_cull_match_jax(state):
                                    np.asarray(getattr(tj.kf_preints[3], name)),
                                    rtol=1e-5, atol=1e-9, err_msg=name)
     assert float(ttr.kf_preints[3].dT) == pytest.approx(2 * DT, abs=1e-6)
+
+
+def test_fused_track_vi_pooled_monocular_matches_jax(state, clear_jax_after):
+    """The fused visual-inertial step of a monocular rig (bf = 0, the
+    frame's right-x vector all -1): tests/test_torch_vi_fused.py's frame 3
+    from keyframe 2's state, anchored rigidly and then with the carried
+    marginal prior; bit-equal words, matches and bits, poses 1e-4,
+    velocity 1e-3, biases 1e-5, H_marg 1e-3 of its largest entry."""
+    frames, mref, pre, vel = state
+    mport = map_state_from_arrays(vars(mref), mref.cfg)
+    cl = len(frames[0]["valid"])
+    args = (0, 8, 1.2, K, WH, 0.0, 8.0, 3.0, 0.9, 0.8, 100, NOISE[2], NOISE[3])
+    ids = _ids(mref, 2, cl)
+    f = frames[3]
+    no_ur = np.full(cl, -1.0, np.float32)
+    mpf_j, mpu_j = jdm.DeviceMapMirror().sync(mref)
+    mpf_t, mpu_t = tdm.DeviceMapMirror("cpu").sync(mport)
+    jfn = jk.fused_track_vi_pooled(*args)
+    tfn = tk.fused_track_vi_pooled(*args, device="cpu")
+    prior = 1e10 * np.eye(15, dtype=np.float32)
+    tail = 14 + 2 * cl + (CC + 31) // 32 + (cl + 31) // 32
+    for case in ("rigid", "carried"):
+        st = _vi_state(frames[2], vel[2], prior)
+        want = np.asarray(jfn(J(st), J(ids), mpf_j, mpu_j, *_feats(f, False, no_ur), pre[2],
+                              cl=cl))
+        got = N(tfn(T(st), T(ids), mpf_t, mpu_t, *_feats(f, True, no_ur),
+                    preint_state_from(pre[2]), cl=cl))
+        assert got.dtype == np.int32 and got.shape == want.shape == (tail + 234,)
+        np.testing.assert_allclose(got[:12].view(np.float32), want[:12].view(np.float32),
+                                   rtol=0, atol=1e-4, err_msg=case)
+        np.testing.assert_array_equal(got[12:tail], want[12:tail], err_msg=case)
+        assert want[13] > 100, "the frame must actually track"
+        vj, vt = want[tail:].view(np.float32), got[tail:].view(np.float32)
+        np.testing.assert_allclose(vt[0:3], vj[0:3], rtol=0, atol=1e-3, err_msg=case)
+        np.testing.assert_allclose(vt[3:9], vj[3:9], rtol=0, atol=1e-5, err_msg=case)
+        Hj, Ht = vj[9:].reshape(15, 15), vt[9:].reshape(15, 15)
+        assert np.isfinite(Ht).all()
+        assert np.abs(Ht - Hj).max() <= 1e-3 * np.abs(Hj).max(), case
+        prior = Hj

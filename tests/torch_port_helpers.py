@@ -446,3 +446,354 @@ def jax_map_from_arrays(arrays: dict, cfg):
                       "device_version"):
             setattr(m, name, int(val))
     return m
+
+
+# ---------------------------------------------------------------------------
+# monocular-inertial end to end (test_torch_e2e_mono_inertial.py)
+# ---------------------------------------------------------------------------
+MI_FRAMES = 61          # see test_torch_e2e_mono_inertial.py for the cut
+MI_HANDOFF = 52         # the JAX package's state after this many frames goes to the port
+MI_INERTIAL_KEYS = ("preint_since_kf", "frame_preint", "_frame_preint_covers")
+MI_TRACKER_KEYS = ("ref_kf", "last_kf_frame_id", "_last_kf_ts", "n_frames", "inlier_ema",
+                   "_last_reloc_frame_id", "consecutive_lost", "frames_since_reloc", "lost_ts",
+                   "n_local_inliers")
+
+
+@functools.lru_cache(maxsize=None)
+def mono_inertial_inputs(n_frames: int = MI_FRAMES):
+    """tests/test_e2e_inertial.py's fixture: RoomScene(seed=4) at 752x480
+    along its strongly excited orbit (``pose_at``), and its 200 Hz IMU
+    stream (camera = body, gravity along the world's +y) twice: the JAX
+    package's ``make_imu`` (the JAX package's so3_log) and the port's
+    ``chip_smoke.imu_stream`` along ``chip_smoke.mono_vi_pose_at`` (numpy and
+    the port's so3_log).
+    Returns (scene, ground-truth centres, frames, {"jax": stream, "torch":
+    stream})."""
+    import chip_smoke as cs
+    import test_e2e_inertial as fx
+    from orbslam3_tpu.utils.datasets import RoomScene
+    scene = RoomScene(seed=4, depth=6.0, half_w=4.0, half_h=2.5)
+    frames, gt = [], []
+    for i in range(n_frames):
+        R, t = fx.pose_at(i)
+        frames.append(scene.render(R, t))
+        gt.append(-R.T @ t)
+    streams = {"jax": fx.make_imu(n_frames),
+               "torch": cs.imu_stream(cs.mono_vi_pose_at, n_frames)[:3]}
+    return scene, np.array(gt), frames, streams
+
+
+def _mono_inertial_system(package: str, scene, pipeline: bool, n_features: int):
+    from conftest import dense_tracking_params
+    jparams = dense_tracking_params(pipeline=pipeline)
+    kw = dict(n_features=n_features, seed=0, enable_loop_closing=False)
+    if package == "jax":
+        from orbslam3_tpu.models.system import SlamSystem as JaxSlam
+        system = JaxSlam(scene.K, None, (scene.w, scene.h), tracking_params=jparams, **kw)
+    else:
+        from orbslam3_tpu_torch.models.system import SlamSystem
+        from orbslam3_tpu_torch.models.tracking import TrackingParams
+        from orbslam3_tpu_torch.utils.convert import config_from
+        system = SlamSystem(scene.K, None, (scene.w, scene.h), device="cpu",
+                            tracking_params=config_from(jparams, TrackingParams), **kw)
+    system.enable_imu(freq=200)
+    return system
+
+
+def _imu_module(package: str):
+    if package == "jax":
+        from orbslam3_tpu.ops import imu_init
+    else:
+        from orbslam3_tpu_torch.ops import imu_init
+    return imu_init
+
+
+def _snapshot(system) -> dict:
+    """A JAX system's map arrays and tracker state, copied (the handoff)."""
+    from orbslam3_tpu_torch.utils.convert import INERTIAL_KEYS
+    m, tr = system.map, system.tracker
+    lf = tr.last_frame
+    return dict(
+        map={k: (v.copy() if isinstance(v, np.ndarray) else v) for k, v in vars(m).items()
+             if isinstance(v, (np.ndarray, int))},
+        cfg=m.cfg, state=tr.state.name,
+        last_frame=dict(frame_id=lf.frame_id, ts=lf.ts, tracked=lf.tracked,
+                        dev={k: np.array(getattr(lf.dev, k)) for k in lf.dev._fields},
+                        **{a: None if getattr(lf, a) is None else np.array(getattr(lf, a))
+                           for a in ("R", "t", "feat_mp", "ur", "depth", "uvr")}),
+        velocity=None if tr.velocity is None else tuple(np.array(x) for x in tr.velocity),
+        attrs={a: getattr(tr, a) for a in MI_TRACKER_KEYS if hasattr(tr, a)},
+        inertial={k: (np.array(v) if isinstance(v, np.ndarray) else v) for k, v in vars(tr).items()
+                  if k in INERTIAL_KEYS + MI_INERTIAL_KEYS},
+        imu_queue=list(tr.imu_queue), kf_preints=dict(tr.kf_preints))
+
+
+def _port_frame(frame_id, ts, dev_arrays, **fields):
+    from orbslam3_tpu_torch.models.frame import Frame
+    from orbslam3_tpu_torch.ops.features import OrbFeatures
+    dev = OrbFeatures(**{k: T(dev_arrays[k]) for k in OrbFeatures._fields})
+    f = Frame(frame_id, ts, dev=dev)
+    for a, v in fields.items():
+        setattr(f, a, None if v is None or a == "tracked" else np.array(v, copy=True))
+    f.tracked = bool(fields.get("tracked", False))
+    return f
+
+
+def _restore(system, snap: dict):
+    """Put a ``_snapshot`` of the JAX package's system into the port's
+    ``system``: the map, the tracker's state and last frame, and the
+    inertial state through ``utils.convert.tracker_inertial_state_from``."""
+    from types import SimpleNamespace
+    from orbslam3_tpu_torch.models.tracking import TrackState
+    from orbslam3_tpu_torch.utils.convert import (map_state_from_arrays,
+                                                  tracker_inertial_state_from)
+    m = map_state_from_arrays(snap["map"], snap["cfg"])
+    system.atlas.maps = [m]
+    system.atlas.current_idx = 0
+    system._bind_map(m)
+    tr = system.tracker
+    lf = snap["last_frame"]
+    tr.last_frame = _port_frame(lf["frame_id"], lf["ts"], lf["dev"], R=lf["R"], t=lf["t"],
+                                feat_mp=lf["feat_mp"], ur=lf["ur"], depth=lf["depth"],
+                                uvr=lf["uvr"], tracked=lf["tracked"])
+    for a, v in snap["attrs"].items():
+        setattr(tr, a, v)
+    tr.velocity = snap["velocity"]
+    tr.state = TrackState[snap["state"]]
+    tracker_inertial_state_from(SimpleNamespace(**snap["inertial"], kf_preints=snap["kf_preints"],
+                                                imu_queue=snap["imu_queue"]), tr)
+
+
+def mono_inertial_handoff(snap: dict, scene, frames, jax_extract, n_frames: int,
+                          pipeline: bool = False) -> dict:
+    """The port continuing from the JAX package's state after ``MI_HANDOFF``
+    frames (its map, tracker and inertial state through
+    ``utils.convert``), tracking the JAX package's features of the next
+    frames up to ``n_frames`` with the JAX package's IMU samples, through the
+    synchronous step or (``pipeline``) the software pipeline at depth 1,
+    flushed at the end. Returns the per-frame states, IMU flags and poses
+    (synchronous only), the frame the init came on and its scale."""
+    from orbslam3_tpu_torch.models.map import locked_current
+    import chip_smoke as cs
+    system = _mono_inertial_system("torch", scene, pipeline, 512)
+    _restore(system, snap)
+    tr = system.tracker
+    _, _, _, streams = mono_inertial_inputs(n_frames)
+    imu_ts, gyro, acc = streams["jax"]
+    rec = dict(states=[], imu=[], poses=[])
+    with cs.InitScale(_imu_module("torch"), tr) as scales:
+        for i in range(MI_HANDOFF, n_frames):
+            s0, s1 = (i - 1) * 10, i * 10
+            feats = jax_extract(frames[i])
+            f = _port_frame(i, i / 20.0, {k: np.array(getattr(feats, k))
+                                          for k in feats._fields})
+            tr.grab_imu(imu_ts[s0:s1], gyro[s0:s1], acc[s0:s1])
+            tr.n_frames += 1
+            if pipeline:
+                tr._pipeline_step(f, i / 20.0)
+            else:
+                tr._timestamp_guard(i / 20.0)
+                tr._preintegrate_step(i / 20.0)
+                with locked_current(tr):
+                    ok = tr._track(f)
+                    tr._log_trajectory(f, tracked=ok)
+                tr.last_frame = f
+                rec["poses"].append(None if f.R is None else (f.R.copy(), f.t.copy()))
+            rec["states"].append(tr.state.name)
+            rec["imu"].append(bool(tr.imu_initialized))
+        tr.flush_pending()
+    rec["init_frame"] = scales.first_frame()
+    rec["init_scale"] = scales.first()
+    rec["stats"] = system.stats()
+    return rec
+
+
+def mono_inertial_run(package: str, n_frames: int = MI_FRAMES, pipeline: bool = False,
+                      n_features: int = 512, snapshot_at: int | None = None) -> dict:
+    """One package's run of ``mono_inertial_inputs``: ``n_features`` features,
+    ``dense_tracking_params(pipeline=...)`` (depth 1), loop closing off, sync
+    mapping, ``enable_imu(freq=200)``, ``track_monocular_inertial`` per frame
+    with the package's own IMU stream. Returns a record: the system, the
+    per-frame tracker states (read without flushing a pipeline), IMU flags
+    and poses, the IMU-init frame and the first init's scale, the metric and
+    the scale-aligned ATE and the frames they associate, the path counts and
+    the stats; with ``snapshot_at`` also the state after that many frames
+    (``_snapshot``) and the extractor."""
+    from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+    scene, gt, frames, streams = mono_inertial_inputs(n_frames)
+    imu_ts, gyro, acc = streams[package]
+    system = _mono_inertial_system(package, scene, pipeline, n_features)
+    tr = system.tracker
+    rec = dict(system=system, states=[], imu=[], poses=[])
+    import chip_smoke as cs
+    with cs.InitScale(_imu_module(package), tr) as scales:
+        for i in range(n_frames):
+            if i == snapshot_at:
+                rec["snapshot"] = _snapshot(system)
+            s0, s1 = (i - 1) * 10, i * 10
+            if i == 0:
+                s0 = s1 = 0
+            system.track_monocular_inertial(frames[i], ts=i / 20.0, imu_ts=imu_ts[s0:s1],
+                                            imu_gyro=gyro[s0:s1], imu_acc=acc[s0:s1])
+            rec["states"].append(tr.state.name)
+            rec["imu"].append(bool(tr.imu_initialized))
+            lf = tr.last_frame
+            rec["poses"].append(None if lf is None or lf.R is None or lf.ts != i / 20.0
+                                else (lf.R.copy(), lf.t.copy()))
+        ts, _, t_wc, lost = system.export_trajectory()
+    sel = ~lost
+    gt_ts = np.arange(n_frames) / 20.0
+    rec["ate"], rec["n_assoc"] = evaluate_trajectory(gt_ts, gt, ts[sel], t_wc[sel],
+                                                     with_scale=False)
+    rec["ate_s"], _ = evaluate_trajectory(gt_ts, gt, ts[sel], t_wc[sel], with_scale=True)
+    rec["init_frame"] = rec["imu"].index(True) if any(rec["imu"]) else None
+    rec["init_scale"] = scales.first()
+    rec["init_frame_tracked"] = scales.first_frame()
+    rec["paths"] = dict(tr.path_counts)
+    rec["stats"] = system.stats()
+    rec["extract"] = tr.extract
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# the inertial RGB-D and fisheye-rig front ends (test_torch_vi_facade.py)
+# ---------------------------------------------------------------------------
+IFE_PRE = 2      # frames with the IMU on and not initialized (the first has no preintegration)
+IFE_VI = 3       # then frames on the seeded inertial state
+
+
+def orbit_pose_at(radius: float, forward: float, yaw_rate: float = 0.003):
+    """orbit_trajectory's pose as a function of a fractional frame: it starts
+    at the origin with no yaw, so its world is the camera's frame at frame 0,
+    the map's world of a rig with depth."""
+    def pose_at(x):
+        c = np.array([radius * np.sin(0.04 * x), 0.15 * np.sin(0.02 * x), forward * x])
+        yaw = yaw_rate * x
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        R_wc = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        return R_wc.T, -R_wc.T @ c
+    return pose_at
+
+
+def orbit_imu_stream(radius: float, forward: float, n_frames: int):
+    """``chip_smoke.imu_stream`` along ``orbit_pose_at`` with gravity along
+    the world's -z, as an IMU-initialized map has it. Returns (timestamps,
+    gyro, acc, the world velocity at each frame)."""
+    import chip_smoke as cs
+    return cs.imu_stream(orbit_pose_at(radius, forward), n_frames, g_w=(0.0, 0.0, -9.81))
+
+
+def inertial_front_end_runs(kind: str) -> dict:
+    """The inertial RGB-D (``kind="rgbd"``: tests/test_e2e_stereo.py's RGB-D
+    orbit, bf = 0.11 fx) or two-camera fisheye (``"rig"``:
+    tests/test_e2e_fisheye.py's KB8 rig at 512x512) front end with
+    ``enable_imu`` and an IMU stream of the orbit (``orbit_imu_stream``), 512
+    features, dense_tracking_params(), sync mapping, loop closing off, both
+    packages. The first IFE_PRE frames run in both packages on their own
+    features; then the JAX package's inertial state is seeded as an
+    initialized IMU's (the true velocity, zero biases, the staging done) and
+    its map, tracker and inertial state go to the port
+    (``utils.convert.tracker_inertial_state_from``), which tracks the next
+    IFE_VI frames on the JAX package's features through the same front end.
+    Returns {"jax": record, "torch": free-run record, "handoff": record}:
+    per frame the tracker state, the frame preintegration's fields, the pose
+    and the fused visual-inertial count."""
+    from conftest import dense_tracking_params
+    from orbslam3_tpu.models.system import SlamSystem as JaxSlam
+    from orbslam3_tpu_torch.models.system import SlamSystem
+    from orbslam3_tpu_torch.models.tracking import TrackingParams
+    from orbslam3_tpu_torch.utils.convert import config_from
+    n = IFE_PRE + IFE_VI
+    if kind == "rgbd":
+        scene, _, views = depth_rig_inputs("rgbd")
+        K, wh, radius = scene.K, (scene.w, scene.h), 0.6
+        kw = dict(bf=DEPTH_RIG_BASELINE * scene.fx, th_depth=DEPTH_RIG_BASELINE * 40)
+    else:
+        from orbslam3_tpu.ops import lie as jlie
+        from orbslam3_tpu.utils.datasets import RoomScene, orbit_trajectory
+        scene = RoomScene(seed=8, depth=6.0, half_w=4.0, half_h=2.5, h=512, w=512,
+                          fx=190.978, fy=190.973, cx=256.0, cy=256.0)
+        scene.kb8_params = KB8
+        R_rl = np.asarray(jlie.so3_exp(J(np.float32([0.0, 0.008, 0.0]))))
+        t_rl = np.array([-0.101, 0.0, 0.0], np.float32)
+        views = [(scene.render(R, t), scene.render(R_rl @ R, R_rl @ t + t_rl))
+                 for R, t in orbit_trajectory(n, radius=0.5, forward=0.03)]
+        K, wh, radius = KB8, (512, 512), 0.5
+        kw = dict(cam_type=1)
+    imu_ts, gyro, acc, vel = orbit_imu_stream(radius, 0.03, n)
+    jparams = dense_tracking_params()
+    kw.update(n_features=512, seed=0, enable_loop_closing=False)
+
+    def make(pkg):
+        if pkg == "jax":
+            s = JaxSlam(K, None, wh, tracking_params=jparams, **kw)
+        else:
+            s = SlamSystem(K, None, wh, device="cpu",
+                           tracking_params=config_from(jparams, TrackingParams), **kw)
+        if kind == "rig":
+            s.set_fisheye_rig(KB8, R_rl, t_rl, lap_l=(0.0, 511.0), lap_r=(0.0, 511.0))
+        s.enable_imu(freq=200)
+        return s
+
+    def step(s, i):
+        s0, s1 = max(i - 1, 0) * 10, i * 10
+        s.tracker.grab_imu(imu_ts[s0:s1], gyro[s0:s1], acc[s0:s1])
+        a, b = views[i]
+        if kind == "rgbd":
+            s.track_rgbd(a, b, ts=i / 20.0)
+        else:
+            s.track_stereo_fisheye(a, b, ts=i / 20.0)
+
+    def record(s, rec):
+        tr = s.tracker
+        fp = tr.frame_preint
+        rec["states"].append(tr.state.name)
+        rec["preint"].append(None if fp is None else {
+            k: N(getattr(fp, k)).copy() for k in ("dT", "dR", "dV", "dP", "C")})
+        lf = tr.last_frame
+        rec["poses"].append(None if lf.R is None else (lf.R.copy(), lf.t.copy()))
+        rec["fused_vi"].append(tr.path_counts["fused_vi"])
+
+    out = {}
+    js = make("jax")
+    feats = []
+    inner = js.tracker.extract
+
+    def capture(img):
+        f = inner(img)
+        feats.append({k: np.array(getattr(f, k)) for k in f._fields})
+        return f
+    js.tracker.extract = capture
+    rec = dict(states=[], preint=[], poses=[], fused_vi=[])
+    for i in range(n):
+        if i == IFE_PRE:
+            tr = js.tracker
+            tr.imu_initialized = True
+            tr.imu_init_ts = (i - 1) / 20.0
+            tr.viba1_done = tr.viba2_done = True
+            tr.velocity_w = vel[i - 1].copy()
+            snap = _snapshot(js)
+            feats.clear()
+        step(js, i)
+        record(js, rec)
+    out["jax"] = rec
+    jax_feats = list(feats)
+    ts_free = make("torch")
+    rec = dict(states=[], preint=[], poses=[], fused_vi=[])
+    for i in range(IFE_PRE):
+        step(ts_free, i)
+        record(ts_free, rec)
+    out["torch"] = rec
+    th = make("torch")
+    _restore(th, snap)
+    queue = iter(jax_feats)
+    from orbslam3_tpu_torch.ops.features import OrbFeatures
+    th.tracker.extract = lambda img: OrbFeatures(**{k: T(v) for k, v in next(queue).items()})
+    rec = dict(states=[], preint=[], poses=[], fused_vi=[])
+    for i in range(IFE_PRE, n):
+        step(th, i)
+        record(th, rec)
+    rec["stats"] = th.stats()
+    out["handoff"] = rec
+    out["jax_stats"] = js.stats()
+    return out
