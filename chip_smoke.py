@@ -88,6 +88,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                 the first 16 frames of each orbit;
  16. stereo merge - tests/test_atlas.py's stereo map stored behind blank frames
                 and merged back by the loop closer's query, at a fixed scale;
+ 17. facade   - (run right after reloc, on its system) save_map, load_map into
+                a new system (bit-equal pools), localization mode on 20 frames
+                the map has seen (back to OK within 3 frames, no new keyframe,
+                the slice's ATE bound, match_rows launched), the TUM, EuRoC,
+                KITTI and keyframe trajectory files read back,
+                reset_active_map and reset, render_map and the live viewer
+                serving /map.png on a free port, system_from_config on a
+                settings file with the walk's intrinsics (10 frames), the
+                synthetic driver (10 frames), and TrackingParams(pose_starts=7)
+                on the walk's first 30 frames (tracked share, an ATE bound from
+                the JAX package's CPU run of the same frames) with the
+                multi-start solve on the card against the CPU;
 every system phase is checked for initialization, tracked fraction, ATE
 (scale-aligned for a monocular rig, metric for one with depth), the errors the
 threads and the BoW query caught (all must be 0), the packaged vocabulary, and
@@ -359,6 +371,25 @@ MONO_VI_STAGES = ("0.imu_preintegration", "1.orb_extraction", "3f.fused_dispatch
 MONO_VI_STAGES_REQUIRED = ("0.imu_preintegration", "3f.fused_dispatch", "9i.local_inertial_ba",
                            "15.imu_init", "16.full_inertial_ba")
 MONO_VI_SCENE = dict(seed=4, depth=6.0, half_w=4.0, half_h=2.5)
+# the facade phase, on the slice's system after the reloc phase: its map is
+# saved, loaded into a new system and tracked in localization mode on frames
+# it has seen (the slice's 0-59, the reloc phase's resumed 65-74)
+FACADE_LOC_FIRST = 55
+FACADE_LOC_FRAMES = 20
+FACADE_WITHIN = 3
+FACADE_CONFIG_FRAMES = 10
+FACADE_MS_FRAMES = 30
+FACADE_MS_STARTS = 7
+# scripts/reference_walks.py --package jax --phase slice --frames 30 --pose-starts 7:
+# first tracked frame 3, then every frame (27 of 30), 8 keyframes
+FACADE_MS_JAX_ATE = 0.00989016883615149
+FACADE_MS_ATE_MAX = max(1.5 * FACADE_MS_JAX_ATE, FACADE_MS_JAX_ATE + 0.02)
+FACADE_DRIVER_FRAMES = 10
+ERROR_COUNTS = ("mapper_errors", "lc_errors", "gba_errors", "reloc_query_errors",
+                "merge_errors")
+FACADE_WRITERS = {"save_trajectory_tum": 8, "save_trajectory_euroc": 8,
+                  "save_trajectory_kitti": 12, "save_keyframe_trajectory_tum": 8,
+                  "save_keyframe_trajectory_euroc": 8}
 
 
 def _reset_counts():
@@ -734,13 +765,14 @@ def loop_counters(slam) -> dict:
 
 def run_walk(scene, poses, imgs, n_frames: int, mapping_mode: str, pipeline: bool,
              system_cls=SlamSystem, params_cls=TrackingParams, right=None, depths=None,
-             **system_kw):
+             params_kw=None, **system_kw):
     """Drive a ``SlamSystem`` over the first ``n_frames`` of the walk and
     measure it (``system_cls`` and ``params_cls``: the port's classes, or
     another package's with the same surface, see scripts/reference_walks.py).
     ``system_kw`` goes to the system (``enable_loop_closing=False`` turns
     loop closing off; the default is on; ``bf`` and ``th_depth`` make a rig
-    with depth). With ``right`` (the right eye's images) the frames go through
+    with depth), ``params_kw`` to its tracking parameters. With ``right``
+    (the right eye's images) the frames go through
     ``track_stereo``, with ``depths`` (depth maps) through ``track_rgbd``,
     else through ``track_monocular``; a rig with depth is metric, so its ATE
     is measured without scale alignment. The clock covers the tracking loop
@@ -749,7 +781,8 @@ def run_walk(scene, poses, imgs, n_frames: int, mapping_mode: str, pipeline: boo
     slam = system_cls(
         scene.K, None, (scene.w, scene.h), n_features=N_FEATURES, seed=0,
         mapping_mode=mapping_mode,
-        tracking_params=params_cls(kf_interval_override=5, pipeline=pipeline),
+        tracking_params=params_cls(kf_interval_override=5, pipeline=pipeline,
+                                   **(params_kw or {})),
         **system_kw)
     tr = slam.tracker
     metric = right is not None or depths is not None
@@ -2241,6 +2274,204 @@ def phase_fisheye(fish):
     return out
 
 
+def _multistart_problem(seed: int = 0, n: int = 160):
+    """A seeded pose problem with a depth-axis false minimum: 45% of the
+    observations come from a camera 0.5 further along the viewing axis, where
+    the prior sits (tests/test_torch_pose_multistart.py's construction)."""
+    rng = np.random.default_rng(seed)
+    K = np.array([458.654, 457.296, 376.0, 240.0], np.float32)
+    pts = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                    rng.uniform(2.5, 8, n)], -1).astype(np.float32)
+    t_false = np.array([0.02, -0.01, 0.5], np.float32)
+    xc = pts + np.where((rng.random(n) < 0.45)[:, None], t_false, 0.0)
+    uv = (xc[:, :2] / xc[:, 2:] * K[:2] + K[2:] + rng.normal(0, 0.7, (n, 2))).astype(np.float32)
+    inv_s2 = (1 / 1.2 ** (2 * rng.integers(0, 4, n))).astype(np.float32)
+    valid = np.zeros(n, bool)
+    valid[rng.permutation(n)[:151]] = True
+    t0 = (t_false + rng.normal(0, 0.01, 3)).astype(np.float32)
+    return (np.eye(3, dtype=np.float32), t0, pts, uv, inv_s2, valid, K)
+
+
+def check_multistart_on_the_card():
+    """``pose_optimize_multistart``'s starts on the card against the same
+    call on the CPU: the same winning start, the pose within 1e-4."""
+    args = _multistart_problem()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        res, costs = pose_opt.multistart_solves(
+            *(torch.as_tensor(a, device=dev) for a in args), n_starts=FACADE_MS_STARTS)
+        best = int(torch.argmin(costs))
+        out[dev] = (best, res.R[best].cpu().numpy(), res.t[best].cpu().numpy(),
+                    costs.cpu().numpy())
+    (bc, Rc, tc, cc), (bh, Rh, th, ch) = out["cuda"], out["cpu"]
+    err = max(float(np.abs(Rc - Rh).max()), float(np.abs(tc - th).max()))
+    if bc != bh or err > 1e-4:
+        raise AssertionError(f"facade: multi-start on the card picks start {bc}, the CPU "
+                             f"{bh} (pose difference {err:.2e}; costs {cc} / {ch})")
+    return dict(best=bc, pose_err=err, cost_gap=float(np.sort(cc)[1] - np.sort(cc)[0]))
+
+
+def _get(url: str) -> bytes:
+    import urllib.request
+    return urllib.request.urlopen(url, timeout=30).read()
+
+
+def phase_facade(slam, scene, poses, imgs):
+    """The rest of the facade on the slice's system (after the reloc phase):
+    save_map, load_map into a new system, localization mode on frames the
+    map has seen, the trajectory writers read back, reset_active_map and
+    reset, system_from_config, the multi-start walk and its solver on the
+    card against the CPU, the map renderer and the live viewer, and the
+    synthetic driver. Returns the record; the localization frames' kernel
+    launches are its ``launches``."""
+    import tempfile
+    from orbslam3_tpu_torch.models.viewer import LiveViewer, render_map
+    from orbslam3_tpu_torch.utils import config as cfg_mod, imageio, serialization
+    out = {}
+    gt = np.array([-R.T @ t for (R, t) in poses])
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        slam.save_map(os.path.join(tmp, "atlas"))
+        new = SlamSystem(scene.K, None, (scene.w, scene.h), n_features=N_FEATURES, seed=0,
+                         mapping_mode="sync", enable_loop_closing=False,
+                         tracking_params=TrackingParams(kf_interval_override=5))
+        new.load_map(os.path.join(tmp, "atlas"))
+        out["save_load_s"] = time.perf_counter() - t0
+        same = all(np.array_equal(getattr(slam.map, k), getattr(new.map, k))
+                   for k in serialization._ARRAYS)
+        out.update(maps=len(new.atlas.maps), n_kf=int(new.map.n_kf), bit_equal=same,
+                   state_after_load=new.state.name)
+        if not same or new.map.n_kf != slam.map.n_kf:
+            raise AssertionError("facade: the loaded map is not the saved one")
+        # localization mode on frames the map has seen
+        new.activate_localization_mode()
+        kf_before = int(new.map.kf_valid.sum())
+        _sync()
+        _reset_counts()
+        states = []
+        last = FACADE_LOC_FIRST + FACADE_LOC_FRAMES
+        for i in range(FACADE_LOC_FIRST, last):
+            new.track_monocular(imgs[i], ts=float(i) / 20.0)
+            states.append(new.state.name)
+        _sync()
+        out["launches"] = _read_counts()
+        st = new.stats()
+        ts, _, t_wc, lost = new.export_trajectory()
+        ate, n_assoc = part_ate(gt, ts[~lost], t_wc[~lost], FACADE_LOC_FIRST, last)
+        out.update(loc_states=states, kf_after=int(new.map.kf_valid.sum()),
+                   kf_before=kf_before, loc_ate=ate, loc_assoc=n_assoc,
+                   frames_to_ok=states.index("OK") + 1 if "OK" in states else None,
+                   errors={k: int(st.get(k, 0)) for k in ERROR_COUNTS})
+        if out["frames_to_ok"] is None or out["frames_to_ok"] > FACADE_WITHIN:
+            raise AssertionError(f"facade: localization not OK within {FACADE_WITHIN} "
+                                 f"frames: {states}")
+        if out["kf_after"] != kf_before:
+            raise AssertionError(f"facade: localization mode made keyframes "
+                                 f"({kf_before} -> {out['kf_after']})")
+        if not ate <= SLICE_ATE_MAX:
+            raise AssertionError(f"facade: localization ATE {ate:.4f} > {SLICE_ATE_MAX}")
+        if any(out["errors"].values()):
+            raise AssertionError(f"facade: errors counted {out['errors']}")
+        if out["launches"]["match_rows"] <= 0:
+            raise AssertionError("facade: localization never launched match_rows")
+        new.deactivate_localization_mode()
+        # the trajectory writers, read back
+        lines = {}
+        for name, n_fields in FACADE_WRITERS.items():
+            path = os.path.join(tmp, name + ".txt")
+            getattr(new, name)(path)
+            rows = [line.split() for line in open(path).read().splitlines()]
+            want = (int(new.map.kf_valid.sum()) if "keyframe" in name else len(ts))
+            if len(rows) != want or any(len(r) != n_fields for r in rows):
+                raise AssertionError(f"facade: {name} wrote {len(rows)} rows, {want} expected")
+            vals = np.array(rows, float)
+            if not np.isfinite(vals).all():
+                raise AssertionError(f"facade: {name} wrote non-finite values")
+            if n_fields == 8:
+                q = vals[:, 4:8]
+                if np.abs(np.linalg.norm(q, axis=1) - 1).max() > 1e-5:
+                    raise AssertionError(f"facade: {name}: quaternions not unit")
+            lines[name] = len(rows)
+        out["written"] = lines
+        # the map renderer and the live viewer, on the loaded map
+        png = os.path.join(tmp, "map.png")
+        render_map(new.map, png, trajectory=t_wc[~lost])
+        out["map_png"] = list(imageio.imread(png).shape)
+        viewer = LiveViewer(new, port=0)
+        try:
+            t1 = time.monotonic()
+            while not viewer._map_png and time.monotonic() - t1 < 30:
+                time.sleep(0.05)
+            served = _get(f"http://127.0.0.1:{viewer.port}/map.png")
+            out["served_png"] = list(imageio.decode_png(served).shape)
+            out["viewer_errors"] = viewer.render_errors
+        finally:
+            viewer.close()
+        if out["viewer_errors"]:
+            raise AssertionError(f"facade: viewer render error {viewer.last_render_error}")
+        # resets
+        new.reset_active_map()
+        out["reset_active_map"] = (int(new.map.n_kf), new.state.name)
+        new.reset()
+        out["reset"] = (len(new.atlas.maps), int(new.map.n_kf), new.state.name)
+        if out["reset_active_map"] != (0, "NOT_INITIALIZED") or out["reset"] != (
+                1, 0, "NOT_INITIALIZED"):
+            raise AssertionError(f"facade: resets gave {out['reset_active_map']}, "
+                                 f"{out['reset']}")
+        new.shutdown(print_times=False)
+        # a system from a EuRoC-style settings file with the walk's intrinsics
+        fx, fy, cx, cy = (float(v) for v in scene.K)
+        yaml_path = os.path.join(tmp, "walk.yaml")
+        with open(yaml_path, "w") as f:
+            f.write(f"%YAML:1.0\nCamera.type: \"PinHole\"\nCamera.fx: {fx}\n"
+                    f"Camera.fy: {fy}\nCamera.cx: {cx}\nCamera.cy: {cy}\n"
+                    "Camera.k1: 0.0\nCamera.k2: 0.0\nCamera.p1: 0.0\nCamera.p2: 0.0\n"
+                    f"Camera.width: {scene.w}\nCamera.height: {scene.h}\n"
+                    "Camera.fps: 20.0\nCamera.RGB: 1\n"
+                    f"ORBextractor.nFeatures: {N_FEATURES}\nORBextractor.scaleFactor: 1.2\n"
+                    "ORBextractor.nLevels: 8\nORBextractor.iniThFAST: 20\n"
+                    "ORBextractor.minThFAST: 7\n")
+        from_cfg = cfg_mod.system_from_config(yaml_path)
+        for i in range(FACADE_CONFIG_FRAMES):
+            from_cfg.track_monocular(imgs[i], ts=float(i) / 20.0)
+        out["config_state"] = from_cfg.state.name
+        from_cfg.shutdown(print_times=False)
+        if out["config_state"] == "NOT_INITIALIZED":
+            raise AssertionError("facade: the system from the settings file never initialized")
+        # the synthetic driver, in-process on the card
+        sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
+        import run_synthetic_torch
+        drv = run_synthetic_torch.main(["--frames", str(FACADE_DRIVER_FRAMES), "--device",
+                                        "cuda", "--out", os.path.join(tmp, "synthetic.txt")])
+        out["driver"] = dict(state=drv.state.name, lines=len(open(
+            os.path.join(tmp, "synthetic.txt")).read().splitlines()))
+        if out["driver"]["lines"] != FACADE_DRIVER_FRAMES or drv.state.name != "OK":
+            raise AssertionError(f"facade: the synthetic driver gave {out['driver']}")
+    # the multi-start pose solve: on the card against the CPU, then a walk
+    out["multistart_solver"] = check_multistart_on_the_card()
+    ms, r_ms = run_walk(scene, poses, imgs, FACADE_MS_FRAMES, "sync", False,
+                        enable_loop_closing=False,
+                        params_kw={"pose_starts": FACADE_MS_STARTS})
+    ms.shutdown(print_times=False)
+    out["multistart_walk"] = {k: r_ms[k] for k in ("tracked", "first_tracked_frame", "ate",
+                                                   "n_assoc", "paths", "n_keyframes",
+                                                   "launches", "initialized", "mapper_errors")}
+    if r_ms["mapper_errors"] or not r_ms["initialized"]:
+        raise AssertionError(f"facade: multi-start walk {out['multistart_walk']}")
+    if r_ms["paths"].get("fused", 0):
+        raise AssertionError("facade: the multi-start walk took the fused step")
+    # the share of the frames from the first tracked one on (the two-view
+    # init takes the first frames: JAX tracks 27 of 30, all from frame 3 on)
+    first = r_ms["first_tracked_frame"]
+    share = (r_ms["tracked"] * FACADE_MS_FRAMES) / max(FACADE_MS_FRAMES - (first or 0), 1)
+    out["multistart_walk"]["tracked_after_init"] = share
+    if first is None or share < TRACKED_MIN or not r_ms["ate"] <= FACADE_MS_ATE_MAX:
+        raise AssertionError(f"facade: multi-start walk tracked {share:.3f} of the frames from "
+                             f"{first} on, ATE {r_ms['ate']:.4f} (bounds {TRACKED_MIN}, "
+                             f"{FACADE_MS_ATE_MAX})")
+    return out
+
+
 def phase_stereo_merge(views):
     slam, r = run_stereo_merge(views)
     slam.shutdown(print_times=False)
@@ -2325,7 +2556,10 @@ def main():
         check_walk("slice", r_slice, SLICE_ATE_MAX)
     with timed("reloc"):
         r_reloc = phase_reloc(slam, scene, imgs)
+    with timed("facade"):
+        r_facade = phase_facade(slam, scene, poses, imgs)
         slam.shutdown(print_times=False)
+    print(f"facade phase: {seconds['facade']:.1f} s: {json.dumps(r_facade)}")
     with timed("merge"):
         r_merge = phase_merge(scene, imgs)
     with timed("loop"):
@@ -2377,6 +2611,7 @@ def main():
             "launches": r_head["launches"][name],
             "launches_slice": r_slice["launches"][name],
             "launches_reloc": r_reloc["launches"][name],
+            "launches_facade": r_facade["launches"][name],
             "launches_loop": r_loop["launches"][name],
             "launches_loop_async": r_loop_async["launches"][name],
             "launches_loop_reloc": r_loop_reloc["launches"][name],

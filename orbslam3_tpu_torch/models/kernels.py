@@ -105,12 +105,15 @@ def projection_matcher(cam_type: int, n_levels: int, scale: float,
 @functools.lru_cache(maxsize=None)
 def pose_opt_kernel(cam_type: int, rounds: int = 4, iters: int = 10, n_starts: int = 1):
     from ..ops import pose_opt
-    if n_starts != 1:
-        raise NotImplementedError(
-            "multi-start pose optimization is not ported yet (ROADMAP.md, Queue 1)")
 
     def fn(R0, t0, pts_w, uv, inv_sigma2, valid, cam_params, obs_ur=None, bf=0.0,
            prior_R=None, prior_t=None, prior_eps=0.0):
+        if n_starts > 1:
+            # the multi-start solve has no pose prior
+            return pose_opt.pose_optimize_multistart(
+                R0, t0, pts_w, uv, inv_sigma2, valid, cam_params,
+                cam_type=cam_type, rounds=rounds, iters=iters, obs_ur=obs_ur, bf=bf,
+                n_starts=n_starts)
         return pose_opt.pose_optimize(
             R0, t0, pts_w, uv, inv_sigma2, valid, cam_params,
             cam_type=cam_type, rounds=rounds, iters=iters, obs_ur=obs_ur, bf=bf,

@@ -25,9 +25,14 @@ runs the inertial BAs, a bad-IMU verdict resets the active map through
 ``_on_bad_imu``, and on an IMU-initialized map the post-loop global pass is
 FullInertialBA(7), the loop closer's essential graph has 4 degrees of
 freedom and a merge welds with the inertial BA.
+The rest of the facade: localization mode (tracking without keyframes),
+``reset`` / ``reset_active_map``, the TUM, EuRoC and KITTI trajectory
+writers (every frame, or the keyframes), the tracked map points and
+keypoints, ``save_map`` / ``load_map`` (``utils/serialization.py``), the
+stage-time table and ``use_viewer=True`` (``models/viewer.py``'s HTTP
+viewer on ``viewer_port``; 0 takes a free port).
 Every tensor lives on ``device``; ``device=None`` is the CUDA card, and there
-is no fallback to the CPU. The viewer is not ported yet: ``use_viewer=True``
-raises ``NotImplementedError`` naming its ROADMAP item.
+is no fallback to the CPU.
 """
 from __future__ import annotations
 
@@ -47,12 +52,20 @@ from .tracking import Tracker, TrackingParams, TrackState
 from ..utils.timing import StageTimer
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to orbslam3_tpu_torch yet "
-                              f"(ROADMAP.md, Queue 1: {item})")
+def _quats(R_wc) -> np.ndarray:
+    """(N,3,3) rotations → (N,4) unit quaternions (x, y, z, w)."""
+    from ..ops import lie
+    R = np.asarray(R_wc, np.float32).reshape(-1, 3, 3)     # an empty log is (0,)
+    return lie.quat_from_mat(torch.as_tensor(R)).numpy()
 
 
 class SlamSystem:
+    @staticmethod
+    def set_verbosity(level: int) -> None:
+        """The reference's Verbose::SetTh; levels in ``utils.verbose``."""
+        from ..utils import verbose
+        verbose.set_verbosity(level)
+
     def __init__(self, K, D, wh, n_features: int = 1024,
                  tracking_params: TrackingParams | None = None,
                  map_cfg: MapConfig | None = None, seed: int = 0,
@@ -60,11 +73,9 @@ class SlamSystem:
                  enable_loop_closing: bool = True, cam_type: int = 0,
                  mapping_mode: str = "sync",
                  kf_cull_redundancy: float = 0.9,
-                 use_viewer: bool = False, device=None):
+                 use_viewer: bool = False, viewer_port: int = 8642, device=None):
         if mapping_mode not in ("sync", "async"):
             raise ValueError(f"mapping_mode must be 'sync' or 'async', got {mapping_mode!r}")
-        if use_viewer:
-            _not_ported("the viewer", "map save and load, the viewer, the example drivers")
         self.device = resolve_device(device)
         self.orb_cfg = feat_ops.OrbConfig(n_features=n_features)
         cap = self.orb_cfg.total_capacity
@@ -94,6 +105,11 @@ class SlamSystem:
         self.tracker.try_cross_map_reloc = self._try_cross_map_reloc
         self.frame_times: list[float] = []
         self.frame_spans: list[tuple] = []   # (t0, t1) perf_counter, per frame
+        # the live viewer's threads (reference bUseViewer)
+        self.viewer = None
+        if use_viewer:
+            from .viewer import LiveViewer
+            self.viewer = LiveViewer(self, port=viewer_port)
 
     @property
     def map(self) -> MapState:
@@ -427,6 +443,9 @@ class SlamSystem:
         """Finalize in-flight frames, drain and join the mapper thread, and
         print the per-stage timing table."""
         self.tracker.flush_pending()
+        if self.viewer is not None:
+            self.viewer.close()
+            self.viewer = None
         if self.runtime is not None:
             self.runtime.shutdown(timeout)
             self.runtime = None
@@ -449,15 +468,141 @@ class SlamSystem:
         self.tracker.flush_pending()
         return self.tracker.export_trajectory()
 
-    def save_trajectory_tum(self, path: str):
+    def print_time_stats(self, file=None):
+        """The per-stage timing table (reference PrintTimeStats)."""
+        self.timer.print_stats(file=file)
+
+    def save_time_stats(self, path: str):
+        """The per-stage timing table as a file (reference ExecTimeMean.txt)."""
+        self.timer.save(path)
+
+    @staticmethod
+    def _write_tum(path: str, ts, R_wc, t_wc):
         """TUM format: ts tx ty tz qx qy qz qw."""
-        from ..ops import lie
-        ts, R_wc, t_wc, _ = self.export_trajectory()
-        q = lie.quat_from_mat(torch.as_tensor(np.asarray(R_wc, np.float32))).numpy()
+        q = _quats(R_wc)
         with open(path, "w") as f:
             for i in range(len(ts)):
                 f.write(f"{ts[i]:.6f} " + " ".join(f"{v:.7f}" for v in t_wc[i])
                         + " " + " ".join(f"{v:.7f}" for v in q[i]) + "\n")
+
+    @staticmethod
+    def _write_euroc(path: str, ts, R_wc, t_wc):
+        """EuRoC format: ts_ns tx ty tz qw qx qy qz."""
+        q = _quats(R_wc)
+        with open(path, "w") as f:
+            for i in range(len(ts)):
+                f.write(f"{ts[i]*1e9:.0f} " + " ".join(f"{v:.9f}" for v in t_wc[i])
+                        + f" {q[i,3]:.9f} {q[i,0]:.9f} {q[i,1]:.9f} {q[i,2]:.9f}\n")
+
+    def save_trajectory_tum(self, path: str):
+        """Every frame's pose, TUM format (reference SaveTrajectoryTUM)."""
+        ts, R_wc, t_wc, _ = self.export_trajectory()
+        self._write_tum(path, ts, R_wc, t_wc)
+
+    def save_trajectory_euroc(self, path: str):
+        """Every frame's pose, EuRoC format (reference SaveTrajectoryEuRoC)."""
+        ts, R_wc, t_wc, _ = self.export_trajectory()
+        self._write_euroc(path, ts, R_wc, t_wc)
+
+    def _keyframe_poses(self):
+        """(ts, R_wc, t_wc) per valid keyframe of the active map."""
+        self.tracker.flush_pending()
+        m = self.map
+        with m.lock:
+            ids = m.valid_kf_ids()
+            ts = m.kf_ts[ids].copy()
+            R_cw = m.kf_R[ids].copy()
+            t_cw = m.kf_t[ids].copy()
+        R_wc = R_cw.transpose(0, 2, 1)
+        t_wc = -np.einsum("nij,nj->ni", R_wc, t_cw)
+        return ts, R_wc, t_wc
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        """Keyframe poses, TUM format (reference SaveKeyFrameTrajectoryTUM)."""
+        self._write_tum(path, *self._keyframe_poses())
+
+    def save_keyframe_trajectory_euroc(self, path: str):
+        """Keyframe poses, EuRoC format (reference SaveKeyFrameTrajectoryEuRoC)."""
+        self._write_euroc(path, *self._keyframe_poses())
+
+    def save_trajectory_kitti(self, path: str):
+        """KITTI format: the 12 values of the 3x4 [R|t] world←camera matrix
+        per frame (reference SaveTrajectoryKITTI)."""
+        ts, R_wc, t_wc, _ = self.export_trajectory()
+        with open(path, "w") as f:
+            for i in range(len(ts)):
+                M = np.concatenate([R_wc[i], t_wc[i][:, None]], axis=1)
+                f.write(" ".join(f"{v:.9e}" for v in M.reshape(-1)) + "\n")
+
+    def activate_localization_mode(self):
+        """Tracking only: the map is frozen because the tracker makes no
+        keyframe (reference ActivateLocalizationMode)."""
+        self.tracker.only_tracking = True
+
+    def deactivate_localization_mode(self):
+        """Keyframes again (reference DeactivateLocalizationMode)."""
+        self.tracker.only_tracking = False
+
+    def reset(self):
+        """Wipe every map of the Atlas (reference System::Reset). The async
+        threads drain first; whatever they are handed afterwards is tagged
+        with the new map."""
+        self.tracker.flush_pending()
+        self.wait_idle()
+        self.atlas = Atlas(self.map_cfg)
+        self._bind_map(self.atlas.current)
+        self.tracker.reset_for_new_map(self.atlas.current)
+        self.tracker.trajectory.clear()
+
+    def reset_active_map(self):
+        """Wipe the active map only (reference System::ResetActiveMap)."""
+        self.tracker.flush_pending()
+        self.wait_idle()
+        self.tracker.freeze_trajectory(mark_lost=True)
+        cur = self.atlas.current
+        idx = self.atlas.current_idx
+        self.atlas.maps[idx] = MapState(self.map_cfg, map_id=cur.map_id)
+        self._bind_map(self.atlas.maps[idx])
+        self.tracker.reset_for_new_map(self.atlas.maps[idx])
+
+    def get_tracked_map_points(self) -> np.ndarray:
+        """Ids of the map points matched in the last frame (reference
+        GetTrackedMapPoints)."""
+        self.tracker.flush_pending()
+        lf = self.tracker.last_frame
+        if lf is None or lf.feat_mp is None:
+            return np.zeros(0, np.int64)
+        mp = lf.feat_mp[lf.feat_mp >= 0]
+        return mp[self.map.mp_valid[mp]]
+
+    def get_tracked_keypoints(self) -> np.ndarray:
+        """(N,2) keypoints of the last frame (reference
+        GetTrackedKeyPointsUn)."""
+        self.tracker.flush_pending()
+        lf = self.tracker.last_frame
+        if lf is None:
+            return np.zeros((0, 2), np.float32)
+        return lf.xy[lf.valid]
+
+    def save_map(self, dir_path: str):
+        """Write the whole Atlas to ``dir_path`` (``utils/serialization.py``)."""
+        from ..utils import serialization
+        self.tracker.flush_pending()
+        self.wait_idle()
+        serialization.save_atlas(self.atlas, dir_path)
+
+    def load_map(self, dir_path: str):
+        """Replace the Atlas by a saved one and re-bind the pipeline to it.
+        The device side follows by itself: the map mirrors are keyed by the
+        map object, and the new loop closer's database starts empty, as in
+        the JAX package. The tracker comes back RECENTLY_LOST on a map with
+        keyframes and relocalizes into it."""
+        from ..utils import serialization
+        self.tracker.flush_pending()
+        self.wait_idle()
+        self.atlas = serialization.load_atlas(dir_path, self.map_cfg)
+        self._bind_map(self.atlas.current)
+        self.tracker.reset_for_new_map(self.atlas.current)
 
     def stats(self) -> dict:
         """Counters of the run. The exceptions the threads and the tracker's

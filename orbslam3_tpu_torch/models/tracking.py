@@ -125,9 +125,9 @@ class Tracker:
         self.orb_cfg = orb_cfg
         self._map = map_state
         self.p = params or TrackingParams()
-        if self.p.pose_starts != 1:
-            raise NotImplementedError(
-                "TrackingParams.pose_starts > 1 is not ported yet (ROADMAP.md, Queue 1)")
+        # localization mode (reference mbOnlyTracking): track against the map
+        # but never make a keyframe
+        self.only_tracking = False
         # the only random numbers of the path: the two-view RANSAC sets, drawn
         # on the host exactly as the reference draws them
         self.rng = np.random.default_rng(seed)
@@ -139,7 +139,8 @@ class Tracker:
             K=self.K if self.cam_type == 0 else None, D=self.D, device=dev)
         self.match_init = kernels.init_matcher()
         self.two_view = kernels.two_view_kernel(sigma_n=1.0 / float(self.K[0]))
-        self.pose_opt = kernels.pose_opt_kernel(cam_type=self.cam_type)
+        self.pose_opt = kernels.pose_opt_kernel(cam_type=self.cam_type,
+                                                n_starts=self.p.pose_starts)
         self._cam_key = tuple(float(v) for v in self.cam_params)
         self._wh_key = (float(wh[0]), float(wh[1]))
         # a deeper pipeline predicts further ahead: widen the search windows
@@ -1062,7 +1063,7 @@ class Tracker:
 
     def _can_fuse_track(self) -> bool:
         if not (self.state == TrackState.OK and self.last_frame is not None
-                and self.p.local_passes == 1):
+                and self.p.local_passes == 1 and self.p.pose_starts == 1):
             return False
         if self.imu_initialized:
             # the visual-inertial fused step needs a per-frame preintegration
@@ -1232,7 +1233,7 @@ class Tracker:
             else:
                 self.velocity = None
             with self.timer.stage("4.new_kf_decision"):
-                need_kf = self._need_new_keyframe(frame)
+                need_kf = not self.only_tracking and self._need_new_keyframe(frame)
             if need_kf:
                 with self.timer.stage("4b.new_kf_creation"):
                     self._create_new_keyframe(frame)
@@ -1385,7 +1386,9 @@ class Tracker:
                      and self._last_track_healthy())
         pR, pt = (lf.R, lf.t) if use_prior else (frame.R, frame.t)
         eps = self.p.pose_prior_eps if use_prior else 0.0
-        if in_map is not None:
+        if in_map is not None or self.p.pose_starts != 1:
+            # host-gathered points: relocalization, and the multi-start solve
+            # (which has no pooled form)
             pts = np.zeros((len(frame.feat_mp), 3), np.float32)
             pts[matched] = m.mp_xyz[frame.feat_mp[matched]]
             dev = frame.dev

@@ -188,3 +188,93 @@ def pose_optimize(
         n_inliers=torch.sum(inlier, dtype=torch.int32),
         chi2=torch.sum(torch.where(inlier, chi2, 0.0)),
     )
+
+
+def _nanmedian_as_jax(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.nanmedian`` of a 1-D float tensor: the median of the non-NaN
+    entries, the mean of the two middle ones on an even count
+    (``torch.nanmedian`` returns the lower one), NaN when every entry is NaN.
+    No host synchronization."""
+    n = x.shape[0]
+    s = torch.sort(x).values                           # NaNs sort last
+    k = torch.sum(~torch.isnan(x))
+    lo = torch.clamp(torch.div(k - 1, 2, rounding_mode="floor"), 0, n - 1)
+    hi = torch.clamp(torch.div(k, 2, rounding_mode="floor"), 0, n - 1)
+    mid = 0.5 * s[lo] + 0.5 * s[hi]
+    return torch.where(k > 0, mid, torch.full_like(mid, float("nan")))
+
+
+# the camera-frame start shifts, in units of spread·median depth: the prior,
+# then the viewing axis (the weakly observed direction), then sideways
+_START_DIRS = ((0.0, 0.0, 0.0), (0.0, 0.0, 1.0), (0.0, 0.0, -1.0),
+               (0.0, 0.0, 2.0), (0.0, 0.0, -2.0), (1.0, 0.0, 0.0),
+               (-1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, -1.0, 0.0))
+
+
+def multistart_solves(
+    R0: torch.Tensor, t0: torch.Tensor,
+    pts_w: torch.Tensor, uv: torch.Tensor, inv_sigma2: torch.Tensor, valid: torch.Tensor,
+    cam_params: torch.Tensor, cam_type: int = cam_ops.PINHOLE,
+    rounds: int = 4, iters: int = 10, chi2_th: float = CHI2_MONO,
+    obs_ur: torch.Tensor | None = None, bf=0.0,
+    n_starts: int = 7, spread: float = 0.015,
+):
+    """Every start of ``pose_optimize_multistart``: the (n_starts,) stacked
+    ``PoseOptResult`` fields and each result's unmasked Huber cost."""
+    dtype, dev = pts_w.dtype, pts_w.device
+    if obs_ur is None:
+        obs_ur = torch.full(pts_w.shape[:1], -1.0, dtype=dtype, device=dev)
+    bf = torch.as_tensor(bf, dtype=dtype, device=dev)
+    # characteristic depth that scales the shifts
+    z = lie.se3_apply(R0, t0, pts_w)[..., 2]
+    z0 = torch.where(valid & (z > 0), z, torch.full_like(z, float("nan")))
+    med_z = torch.nan_to_num(_nanmedian_as_jax(z0), nan=1.0)
+    dirs = torch.tensor(_START_DIRS[:n_starts], dtype=dtype, device=dev)
+    t0s = t0[None, :] + spread * med_z * dirs
+
+    def solve(tt):
+        res = pose_optimize(R0, tt, pts_w, uv, inv_sigma2, valid, cam_params,
+                            cam_type=cam_type, rounds=rounds, iters=iters,
+                            chi2_th=chi2_th, obs_ur=obs_ur, bf=bf)
+        return res.R, res.t, res.inlier, res.n_inliers, res.chi2
+
+    Rs, ts, inliers, n_inl, chi2s = torch.func.vmap(solve)(t0s)
+
+    huber_m = torch.sqrt(torch.tensor(CHI2_MONO, dtype=dtype, device=dev))
+    huber_s = torch.sqrt(torch.tensor(CHI2_STEREO, dtype=dtype, device=dev))
+    has_ur = obs_ur >= 0
+    w_valid = valid.to(dtype)
+
+    def total_cost(R, t):
+        _, _, chi2 = _build_normal_eq(R, t, pts_w, uv, obs_ur, bf, inv_sigma2, w_valid,
+                                      cam_type, cam_params, huber_m, huber_s)
+        d = torch.where(has_ur, huber_s, huber_m)
+        d2 = d * d
+        rho = torch.where(chi2 <= d2, chi2, 2.0 * d * torch.sqrt(chi2 + 1e-12) - d2)
+        rho = torch.clamp(rho, max=1e6)
+        return torch.sum(rho * w_valid)
+
+    costs = torch.func.vmap(total_cost)(Rs, ts)
+    return PoseOptResult(R=Rs, t=ts, inlier=inliers, n_inliers=n_inl, chi2=chi2s), costs
+
+
+def pose_optimize_multistart(R0, t0, pts_w, uv, inv_sigma2, valid, cam_params,
+                             cam_type: int = cam_ops.PINHOLE, rounds: int = 4, iters: int = 10,
+                             chi2_th: float = CHI2_MONO, obs_ur=None, bf=0.0,
+                             n_starts: int = 7, spread: float = 0.015) -> PoseOptResult:
+    """Multi-start pose LM: ``pose_optimize`` from the prior pose and from
+    camera-frame translation shifts of it (mostly along the viewing axis),
+    all starts in one batched solve (``torch.func.vmap``); the winner is the
+    first start with the lowest robust Huber cost over ALL valid
+    observations (the inlier sets differ between starts, so a masked total
+    would reward aggressive censoring). The pose prior is not used.
+
+    It guards against spurious minima of the robust cost displaced along the
+    depth direction, which a drifting motion-model prediction falls into and
+    the chi2 reclassification then locks in."""
+    res, costs = multistart_solves(R0, t0, pts_w, uv, inv_sigma2, valid, cam_params,
+                                   cam_type=cam_type, rounds=rounds, iters=iters,
+                                   chi2_th=chi2_th, obs_ur=obs_ur, bf=bf, n_starts=n_starts,
+                                   spread=spread)
+    best = torch.argmin(costs)        # the first minimum, as jnp.argmin
+    return PoseOptResult(*(f[best] for f in res))

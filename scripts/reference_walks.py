@@ -4,7 +4,7 @@
         --phase slice|headline|loop|merge|drifted|stereo|vi|mono-vi|rgbd|fisheye|stereo-merge
         [--frames N] [--features N] [--mapping sync|async] [--pipeline 0|1] [--loop-closing 0|1]
         [--width full|test] [--device cpu|cuda] [--repeat N] [--stop-after N]
-        [--record FILE] [--deterministic]
+        [--record FILE] [--deterministic] [--pose-starts N]
     python3 scripts/reference_walks.py --compare JAX_FILE TORCH_FILE
 
 Drives the very functions chip_smoke.py drives on the GPU (``run_walk``,
@@ -16,6 +16,8 @@ the card with ``--device cuda``), at the same full-size configuration
 
 - ``slice``: 60 frames of the walk with sync mapping, then the
   relocalization scenario on that system (textureless frames, walk resumed);
+  with ``--pose-starts 7 --frames 30`` the multi-start walk of chip_smoke.py's
+  facade phase;
 - ``headline``: 300 frames with ``mapping_mode="async"`` and
   ``TrackingParams(pipeline=True)``, loop closing on (the system's default);
   ``--mapping``, ``--pipeline`` and ``--loop-closing`` override each, to tell
@@ -272,6 +274,9 @@ def main():
                          "correction")
     ap.add_argument("--record", help="loop phase: write frames and loop queries here")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"), help="two --record files")
+    ap.add_argument("--pose-starts", type=int, default=1,
+                    help="slice and headline: TrackingParams.pose_starts (the multi-start "
+                         "pose solve above 1)")
     ap.add_argument("--threads", type=int, default=4, help="torch CPU threads")
     ap.add_argument("--deterministic", action="store_true",
                     help="torch.use_deterministic_algorithms(True) for the port")
@@ -300,8 +305,10 @@ def main():
     pipeline = bool(opt.phase in ("headline", "stereo", "mono-vi") if opt.pipeline is None
                     else opt.pipeline)
     lc = bool(opt.phase != "slice" if opt.loop_closing is None else opt.loop_closing)
+    params_kw = {"pose_starts": opt.pose_starts} if opt.pose_starts != 1 else None
     out = {"package": opt.package, "phase": opt.phase, "device": opt.device,
-           "mapping": mapping, "pipeline": pipeline, "loop_closing": lc}
+           "mapping": mapping, "pipeline": pipeline, "loop_closing": lc,
+           "pose_starts": opt.pose_starts}
     name = (f"{opt.package} on {where}, {opt.phase} ({mapping}, pipeline {pipeline}, "
             f"loop closing {lc})")
     if opt.phase == "drifted":
@@ -356,7 +363,7 @@ def main():
         n = opt.frames or cs.SLICE_FRAMES
         scene, poses, imgs = cs.render_walk(n + cs.RELOC_BLANK + cs.RELOC_RESUME)
         slam, rec = cs.run_walk(scene, poses, imgs, n, mapping, pipeline,
-                                 enable_loop_closing=lc, **kw)
+                                 enable_loop_closing=lc, params_kw=params_kw, **kw)
         print(cs.walk_line(name, n, rec))
         reloc = cs.run_reloc(slam, scene, imgs, n)
         print(f"{opt.package} on {where}, reloc: {json.dumps(reloc)}")
@@ -365,7 +372,7 @@ def main():
         n = opt.frames or cs.HEADLINE_FRAMES
         scene, poses, imgs = cs.render_walk(n)
         slam, rec = cs.run_walk(scene, poses, imgs, n, mapping, pipeline,
-                                 enable_loop_closing=lc, **kw)
+                                 enable_loop_closing=lc, params_kw=params_kw, **kw)
         print(cs.walk_line(name, n, rec))
         out.update(walk=rec)
     elif opt.phase == "merge":

@@ -28,7 +28,7 @@ from orbslam3_tpu_torch.models.system import SlamSystem
 from orbslam3_tpu_torch.models.tracking import TrackingParams
 from orbslam3_tpu_torch.ops import match_rows as mr
 from orbslam3_tpu_torch.utils.convert import config_from
-from torch_port_helpers import torch_threads  # noqa: F401
+from torch_port_helpers import render_all, torch_threads  # noqa: F401
 
 N_FRAMES = 32
 K4 = np.array([458.0, 457.0, 376.0, 240.0], np.float32)
@@ -38,7 +38,7 @@ K4 = np.array([458.0, 457.0, 376.0, 240.0], np.float32)
 def runs():
     scene = RoomScene(seed=1, n_clutter=4)
     poses = orbit_trajectory(N_FRAMES, radius=1.0, forward=0.0)
-    imgs = [scene.render(R, t) for R, t in poses]
+    imgs = render_all(scene, poses)
     gt = np.array([-R.T @ t for R, t in poses])
     jparams = dense_tracking_params(pipeline=True)
     systems = {

@@ -27,7 +27,7 @@ from orbslam3_tpu.utils.evaluation import evaluate_trajectory
 from orbslam3_tpu_torch.models.system import SlamSystem
 from orbslam3_tpu_torch.models.tracking import TrackingParams, TrackState
 from orbslam3_tpu_torch.utils.convert import config_from
-from torch_port_helpers import torch_threads  # noqa: F401
+from torch_port_helpers import render_all, torch_threads  # noqa: F401
 
 N_FRAMES = 32
 
@@ -45,7 +45,7 @@ def _run(system, imgs):
 def runs():
     scene = RoomScene(seed=1)
     poses = orbit_trajectory(N_FRAMES, radius=1.0, forward=0.04)
-    imgs = [scene.render(R, t) for R, t in poses]
+    imgs = render_all(scene, poses)
     gt = np.array([-R.T @ t for R, t in poses])
     jparams = dense_tracking_params()
     jsys = JaxSlam(scene.K, None, (scene.w, scene.h), n_features=512, seed=0,
@@ -117,10 +117,36 @@ def test_loop_closer_matches_reference(runs):
 @pytest.mark.parametrize("kw", [dict(use_viewer=True),
                                 dict(tracking_params=TrackingParams(pose_starts=2))])
 def test_unported_options_raise(kw):
-    """Options outside the port so far name their ROADMAP item instead of
-    passing silently."""
+    """The options that once raised run now. ``use_viewer=True``: the live
+    viewer serves its page on a free port until shutdown. ``pose_starts=2``:
+    as in the JAX package, the fused step is off and the tracker's pose
+    solve is the two-start one, which gives the JAX package's pose (within
+    1e-4) on a seeded problem."""
+    import urllib.request
     base = dict(device="cpu")
     base.update(kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlamSystem(np.array([458.0, 457.0, 376.0, 240.0], np.float32), None, (752, 480),
-                   n_features=256, **base)
+    K = np.array([458.0, 457.0, 376.0, 240.0], np.float32)
+    s = SlamSystem(K, None, (752, 480), n_features=256, viewer_port=0, **base)
+    if "use_viewer" in kw:
+        url = f"http://127.0.0.1:{s.viewer.port}/"
+        assert b"live viewer" in urllib.request.urlopen(url, timeout=20).read()
+        s.shutdown(print_times=False)
+        assert s.viewer is None
+        return
+    import jax.numpy as jnp
+    import torch
+    from orbslam3_tpu.models.tracking import TrackingParams as JaxParams
+    from orbslam3_tpu.models.tracking import TrackState as JaxState
+    from test_torch_pose_multistart import problem
+    j = JaxSlam(K, None, (752, 480), n_features=256, tracking_params=JaxParams(pose_starts=2))
+    for tr, ok in ((s.tracker, TrackState.OK), (j.tracker, JaxState.OK)):
+        tr.state, tr.last_frame = ok, object()
+        tr.velocity = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+        assert not tr._can_fuse_track()
+    args, ur, bf = problem(0, True, 150)
+    rt = s.tracker.pose_opt(*(torch.as_tensor(a) for a in args), obs_ur=torch.as_tensor(ur),
+                            bf=float(bf))
+    rj = j.tracker.pose_opt(*(jnp.asarray(a) for a in args), jnp.asarray(ur), jnp.asarray(bf))
+    np.testing.assert_allclose(rt.R.numpy(), np.asarray(rj.R), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(rt.t.numpy(), np.asarray(rj.t), rtol=0, atol=1e-4)
+    assert int(rt.n_inliers) == int(rj.n_inliers)

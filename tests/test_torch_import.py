@@ -1,8 +1,11 @@
 """The port runs where JAX is absent: importing every module of
 orbslam3_tpu_torch (the loop closer, vocabulary, Sim3 and pose-graph modules
-among them), extracting one frame and building a loop closer on the packaged
-vocabulary must never import ``jax`` or the JAX package ``orbslam3_tpu`` (the
-machine with the GPU has no JAX), and no file of the port or of chip_smoke.py
+among them, the settings loader, the PNG reader, the viewer and the frame
+step of ``entry``) and the example drivers ``examples/run_*_torch.py``,
+extracting one frame and building a loop closer on the packaged vocabulary
+must never import ``jax``, the JAX package ``orbslam3_tpu``, ``cv2``,
+``matplotlib``, ``yaml`` or ``PIL`` (the machine with the GPU has none of
+them), and no file of the port, of its drivers or of chip_smoke.py
 reads a file of that package: what the port shares with it
 (``csrc/mapops.cpp``, ``data/vocab_synth.npz``) is a copy, held byte-equal
 here."""
@@ -15,12 +18,16 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
-import importlib, importlib.abc, pkgutil, sys
+import glob, importlib, importlib.abc, os, pkgutil, sys
 import numpy as np
+
+# the machine with the card has no JAX, no OpenCV, no matplotlib, no PyYAML
+# and no Pillow
+BLOCKED = ("jax", "jaxlib", "orbslam3_tpu", "cv2", "matplotlib", "yaml", "PIL")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -30,6 +37,14 @@ names = [m.name for m in pkgutil.walk_packages(orbslam3_tpu_torch.__path__,
                                                 "orbslam3_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
+for n in ("utils.config", "utils.imageio", "utils.serialization", "models.viewer", "entry"):
+    assert "orbslam3_tpu_torch." + n in names, n
+# the example drivers
+sys.path.insert(0, "examples")
+drivers = sorted(glob.glob("examples/run_*_torch.py"))
+assert len(drivers) == 6, drivers
+for path in drivers:
+    importlib.import_module(os.path.basename(path)[:-3])
 
 import torch
 torch.set_num_threads(2)
@@ -49,7 +64,7 @@ lc = loop_closing.LoopCloser(MapState(MapConfig(n_features=256)),
                              np.array([458.0, 457.0, 376.0, 240.0], np.float32),
                              (752, 480), device="cpu")
 assert lc.vocab.n_words == 10000, lc.vocab.n_words
-assert not any(k.split(".")[0] in ("jax", "jaxlib", "orbslam3_tpu") for k in sys.modules)
+assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 print("OK", len(names))
 """
 
@@ -77,6 +92,9 @@ def test_no_import_line_names_jax():
 
 def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
+    for fn in sorted(os.listdir(os.path.join(REPO, "examples"))):
+        if fn.endswith("_torch.py"):
+            yield os.path.join(REPO, "examples", fn)
     for root, _, files in os.walk(os.path.join(REPO, "orbslam3_tpu_torch")):
         for fn in files:
             if fn.endswith(".py"):

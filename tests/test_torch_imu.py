@@ -168,3 +168,41 @@ def test_apply_scaled_rotation_matches_jax():
     ot = tinit.apply_scaled_rotation(T(R), T(t), T(pts), T(Rgw), torch.tensor(2.5))
     for a, b in zip(oj, ot):
         _close(a, b, rel=1e-6)
+
+
+def test_jitted_reference_is_bit_identical():
+    """The JAX package's preintegration and relocalization PnP, which the
+    port's module fixture (``torch_port_helpers.jax_host_calls``) runs
+    jitted, and the so3_log that the e2e fixtures' IMU streams run jitted,
+    give bit for bit what their eager calls give, so the reference runs are
+    unchanged."""
+    from orbslam3_tpu.ops import lie as jlie
+    from torch_port_helpers import jitted
+    raw = jimu.preintegrate.__wrapped__            # the fixture's wrapper
+    acc, gyro, dts, valid = _signals(n=40, valid_every=3)
+    args = (J(acc), J(gyro), J(dts), J(valid), jnp.zeros(3), jnp.full(3, 0.01))
+    noise = (1.7e-4, 2e-3, 1e-5, 1e-4, 200.0)
+    eager, fast = raw(*args, *noise), jimu.preintegrate(*args, *noise)
+    for k in eager._fields:
+        assert np.array_equal(np.asarray(getattr(eager, k)), np.asarray(getattr(fast, k))), k
+    R = jlie.so3_exp(J(np.random.default_rng(0).normal(0, 1, (64, 3)).astype(np.float32)))
+    eager_log = np.asarray(jlie.so3_log(R))
+    with jitted(jlie, "so3_log"):
+        assert hasattr(jlie.so3_log, "__wrapped__")
+        assert np.array_equal(np.asarray(jlie.so3_log(R)), eager_log)
+    assert not hasattr(jlie.so3_log, "__wrapped__")
+    # relocalization's PnP: RANSAC on host-drawn 6-point sets, then MLPnP
+    from orbslam3_tpu.ops import pnp as jpnp
+    rng = np.random.default_rng(1)
+    xw = rng.uniform([-2, -2, 3], [2, 2, 8], (60, 3)).astype(np.float32)
+    rays = np.concatenate([xw[:, :2] / xw[:, 2:] + rng.normal(0, 1e-3, (60, 2)),
+                           np.ones((60, 1))], 1).astype(np.float32)
+    args = (J(xw), J(rays), jnp.ones(60, bool),
+            J(rng.integers(0, 60, (128, 6)).astype(np.int32)), jnp.ones(60, jnp.float32))
+    for fn, call in (("pnp_ransac", lambda f: f(*args, focal=458.0)),
+                     ("mlpnp_refine", lambda f: f(args[0], args[1], jnp.full(60, 458.0 ** 2),
+                                                  args[2], jnp.eye(3), jnp.zeros(3)))):
+        wrapped = getattr(jpnp, fn)
+        a, b = call(wrapped.__wrapped__), call(wrapped)
+        for x, y in zip(jax.tree_util.tree_leaves(a), jax.tree_util.tree_leaves(b)):
+            assert np.array_equal(np.asarray(x), np.asarray(y)), fn

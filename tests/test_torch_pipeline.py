@@ -27,7 +27,7 @@ from orbslam3_tpu.utils.evaluation import evaluate_trajectory, horn_align
 from orbslam3_tpu_torch.models.system import SlamSystem
 from orbslam3_tpu_torch.models.tracking import TrackingParams
 from orbslam3_tpu_torch.utils.convert import config_from
-from torch_port_helpers import torch_threads  # noqa: F401
+from torch_port_helpers import render_all, torch_threads  # noqa: F401
 
 N = 16
 KF_BAND = 2        # keyframes: |port - JAX|
@@ -39,7 +39,7 @@ def runs():
     """{(package, depth): record}; depth 0 is the port's unpipelined run."""
     scene = RoomScene(seed=1, n_clutter=4)
     poses = orbit_trajectory(N, radius=1.0, forward=0.0)
-    imgs = [scene.render(R, t) for R, t in poses]
+    imgs = render_all(scene, poses)
     gt = np.array([-R.T @ t for R, t in poses])
     out = {}
     for package, depth in (("jax", 1), ("jax", 2), ("torch", 0), ("torch", 1), ("torch", 2)):

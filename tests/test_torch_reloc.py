@@ -30,7 +30,7 @@ from orbslam3_tpu_torch.models.frame import build_frame
 from orbslam3_tpu_torch.models.system import SlamSystem
 from orbslam3_tpu_torch.models.tracking import TrackingParams, TrackState
 from orbslam3_tpu_torch.utils.convert import config_from
-from torch_port_helpers import J, torch_threads  # noqa: F401
+from torch_port_helpers import J, render_all, torch_threads  # noqa: F401
 
 N_FRAMES = 30
 
@@ -84,7 +84,7 @@ def _rescue(slam, make_frame, poses, c_q):
 def built():
     scene = RoomScene(seed=2, n_clutter=4)
     poses = walk_trajectory(N_FRAMES, period=200)
-    imgs = [scene.render(R, t) for R, t in poses]
+    imgs = render_all(scene, poses)
     jparams = dense_tracking_params()
     jsys = JaxSlam(scene.K, None, (scene.w, scene.h), n_features=512, seed=0,
                    tracking_params=jparams, enable_loop_closing=False)

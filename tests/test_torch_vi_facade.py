@@ -79,12 +79,11 @@ def test_kb8_monocular_inertial_matches_jax():
     from orbslam3_tpu.utils.datasets import RoomScene, orbit_trajectory
     from orbslam3_tpu_torch.models.tracking import TrackingParams
     from orbslam3_tpu_torch.utils.convert import config_from
-    from torch_port_helpers import KB8, orbit_imu_stream
+    from torch_port_helpers import KB8, orbit_imu_stream, render_all
     scene = RoomScene(seed=6, depth=6.0, half_w=4.0, half_h=2.5, h=512, w=512,
                       fx=190.978, fy=190.973, cx=256.0, cy=256.0)
     scene.kb8_params = KB8
-    frames = [scene.render(R, t) for R, t in orbit_trajectory(KB8_FRAMES, radius=0.6,
-                                                               forward=0.03)]
+    frames = render_all(scene, orbit_trajectory(KB8_FRAMES, radius=0.6, forward=0.03))
     imu_ts, gyro, acc, _ = orbit_imu_stream(0.6, 0.03, KB8_FRAMES)
     jparams = dense_tracking_params()
     kw = dict(n_features=512, seed=0, cam_type=1, enable_loop_closing=False)
@@ -182,8 +181,16 @@ def test_inertial_post_loop_ba_matches_jax():
 
 
 def test_the_viewer_still_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*viewer"):
-        _system(use_viewer=True)
+    """``use_viewer=True`` on an inertial system: the live viewer serves the
+    page and the state on a free port, and shutdown closes it."""
+    import urllib.request
+    s = _system(use_viewer=True, viewer_port=0)
+    s.enable_imu(freq=200.0)
+    base = f"http://127.0.0.1:{s.viewer.port}"
+    assert b"live viewer" in urllib.request.urlopen(base + "/", timeout=20).read()
+    assert b"n_keyframes" in urllib.request.urlopen(base + "/state", timeout=20).read()
+    s.shutdown(print_times=False)
+    assert s.viewer is None
 
 
 def test_enable_imu_and_on_bad_imu_match_jax():

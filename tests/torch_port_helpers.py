@@ -7,6 +7,7 @@ cross the boundary as uint32 words for JAX and their int32 bit patterns
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import jax
@@ -20,13 +21,80 @@ from orbslam3_tpu_torch.utils.loop_scenes import build_drifted_map  # noqa: F401
 N_FEATURES = 512
 
 
+@contextlib.contextmanager
+def jitted(module, name: str, **jit_kw):
+    """``module.name`` replaced by ``jax.jit`` of itself for the duration
+    (the JAX package's files are untouched). For functions that the JAX
+    package calls eagerly from host code with stable shapes: the eager call
+    traces and compiles on every call, the jitted one once per shape
+    (``jax_host_calls`` says what each gives)."""
+    orig = getattr(module, name)
+    setattr(module, name, jax.jit(orig, **jit_kw))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def shared_jax_extractors():
+    """The JAX package's ``features.make_extractor`` returns a new jitted
+    function per tracker, so every JAX system of a module compiles the same
+    extractor again; for the duration, systems of one image size and
+    configuration share one (the same program: the results are the same).
+    Intrinsics only matter with a distortion to undo."""
+    from orbslam3_tpu.ops import features
+    orig = features.make_extractor
+    cache = {}
+
+    def make_extractor(h, w, cfg, K=None, D=None):
+        key = (int(h), int(w), cfg,
+               None if D is None else tuple(np.asarray(K, np.float32).ravel()),
+               None if D is None else tuple(np.asarray(D, np.float32).ravel()))
+        if key not in cache:
+            cache[key] = orig(h, w, cfg, K=K, D=D)
+        return cache[key]
+
+    features.make_extractor = make_extractor
+    try:
+        yield
+    finally:
+        features.make_extractor = orig
+
+
+def jax_host_calls():
+    """The JAX package's functions that its tracker and mapper call eagerly
+    from host code, jitted (``jitted``): the IMU preintegration once per
+    frame (0.8 s a call on the CPU, a new trace of its scan each time),
+    relocalization's PnP RANSAC and MLPnP refinement once per candidate
+    (1.5-5.6 s and 1.5-1.9 s a call eager, 0.3-0.5 s and 1.0-1.2 s jitted),
+    which all three give bit-identical results jitted
+    (``test_torch_imu.py::test_jitted_reference_is_bit_identical``), and the
+    inertial-only initialization once per IMU init attempt (14 s a solve
+    eager, 6 s jitted; within 1e-6 of its eager result, the jitted form
+    ``test_torch_imu.py`` holds the port against). Also one extractor per
+    configuration (``shared_jax_extractors``)."""
+    from orbslam3_tpu.ops import imu, imu_init, pnp
+    stack = contextlib.ExitStack()
+    stack.enter_context(jitted(imu, "preintegrate", static_argnums=(6, 7, 8, 9, 10)))
+    stack.enter_context(jitted(pnp, "pnp_ransac",
+                               static_argnames=("chi2_th", "focal", "min_inliers")))
+    stack.enter_context(jitted(pnp, "mlpnp_refine", static_argnames=("iters",)))
+    stack.enter_context(jitted(imu_init, "inertial_init",
+                               static_argnames=("opt_scale", "iters", "prior_g", "prior_a")))
+    stack.enter_context(shared_jax_extractors())
+    return stack
+
+
 @pytest.fixture(autouse=True, scope="module")
 def torch_threads():
     """Two intra-op threads per worker: tier-1 runs six workers on eight
-    cores."""
+    cores. For the module's duration the JAX package's eager host calls run
+    jitted (``jax_host_calls``)."""
     prev = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
+    with jax_host_calls():
+        yield
     torch.set_num_threads(prev)
 
 
@@ -55,6 +123,23 @@ def as_i32(x) -> np.ndarray:
     return a.view(np.int32) if a.dtype == np.uint32 else a
 
 
+def render_all(scene, views, threads: int = 3) -> list:
+    """``scene.render(R, t[, return_depth=True])`` for each ``(R, t)`` or
+    ``(R, t, True)`` in ``views``, in order, on ``threads`` threads (numpy
+    releases the interpreter lock in the renderer's array operations; each
+    view is computed exactly as alone). The first view renders alone: it
+    fills the scene's ray cache."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(v):
+        return scene.render(v[0], v[1], return_depth=bool(v[2]) if len(v) > 2 else False)
+    if not views:
+        return []
+    first = one(views[0])
+    with ThreadPoolExecutor(threads) as ex:
+        return [first] + list(ex.map(one, views[1:]))
+
+
 def random_pose(rng, rot_scale=0.2, t_scale=0.3):
     """(R, t) world→camera, a moderate rotation and translation, float32."""
     from orbslam3_tpu_torch.ops import lie
@@ -74,10 +159,9 @@ def room_frames(n_frames: int = 8, n_features: int = N_FEATURES):
     scene = RoomScene(seed=1)
     poses = orbit_trajectory(n_frames, radius=1.0, forward=0.04)
     cfg = jf.OrbConfig(n_features=n_features)
-    extract = jax.jit(lambda im: jf.extract_orb(im, cfg))
+    extract = jf.make_extractor(scene.h, scene.w, cfg)
     frames = []
-    for R, t in poses:
-        img, depth = scene.render(R, t, return_depth=True)
+    for (R, t), (img, depth) in zip(poses, render_all(scene, [(R, t, True) for R, t in poses])):
         f = extract(jnp.asarray(img))
         frames.append(dict(img=img, depth=depth, R=R.astype(np.float32),
                            t=t.astype(np.float32),
@@ -164,8 +248,12 @@ def fisheye_runs(kind: str) -> dict:
                              forward=0.03)[:FISHEYE_FRAMES]
     R_rl = np.asarray(jlie.so3_exp(J(np.float32([0.0, 0.008, 0.0]))))
     t_rl = np.array([-0.101, 0.0, 0.0], np.float32)
-    frames = [(scene.render(R, t), scene.render(R_rl @ R, R_rl @ t + t_rl) if rig else None)
-              for R, t in poses]
+    views = [(R, t) for R, t in poses]
+    if rig:
+        views += [(R_rl @ R, R_rl @ t + t_rl) for R, t in poses]
+    imgs = render_all(scene, views)
+    n = len(poses)
+    frames = [(imgs[i], imgs[n + i] if rig else None) for i in range(n)]
     gt = np.array([-R.T @ t for R, t in poses])
     jparams = dense_tracking_params()
     kw = dict(n_features=512, seed=0, cam_type=1, enable_loop_closing=False)
@@ -234,13 +322,13 @@ def depth_rig_inputs(kind: str, n_frames: int = DEPTH_RIG_FRAMES):
     from orbslam3_tpu.utils.datasets import RoomScene, orbit_trajectory
     scene = RoomScene(seed=2 if kind == "stereo" else 3, depth=6.0, half_w=4.0, half_h=2.5)
     poses = orbit_trajectory(n_frames, radius=0.6, forward=0.03)
-    frames = []
-    for R, t in poses:
-        if kind == "stereo":
-            Rr, tr = scene.stereo_pose(R, t, DEPTH_RIG_BASELINE)
-            frames.append((scene.render(R, t), scene.render(Rr, tr)))
-        else:
-            frames.append(scene.render(R, t, return_depth=True))
+    if kind == "stereo":
+        views = [(R, t) for R, t in poses]
+        views += [scene.stereo_pose(R, t, DEPTH_RIG_BASELINE) for R, t in poses]
+        imgs = render_all(scene, views)
+        frames = list(zip(imgs[:len(poses)], imgs[len(poses):]))
+    else:
+        frames = render_all(scene, [(R, t, True) for R, t in poses])
     return scene, np.array([-R.T @ t for R, t in poses]), frames
 
 
@@ -386,17 +474,16 @@ def stereo_inertial_runs() -> dict:
     from orbslam3_tpu_torch.models.system import SlamSystem
     from orbslam3_tpu_torch.models.tracking import TrackingParams
     from orbslam3_tpu_torch.utils.convert import config_from
+    from orbslam3_tpu.ops import lie
     n_total = SI_SYNC_FRAMES + SI_PIPE_FRAMES
     scene = RoomScene(seed=2, depth=6.0, half_w=4.0, half_h=2.5)
-    imu_ts, gyro, acc = fx.make_imu(n_total)
+    with jitted(lie, "so3_log"):          # make_imu's one eager call per sample
+        imu_ts, gyro, acc = fx.make_imu(n_total)
     per = fx.IMU_HZ // int(fx.FPS)
-    frames, gt = [], []
-    for i in range(n_total):
-        R, t = fx.pose_at(i)
-        Rr, tr = scene.stereo_pose(R, t, fx.BASELINE)
-        frames.append((scene.render(R, t), scene.render(Rr, tr)))
-        gt.append(-R.T @ t)
-    gt = np.array(gt)
+    poses = [fx.pose_at(i) for i in range(n_total)]
+    imgs = render_all(scene, poses + [scene.stereo_pose(R, t, fx.BASELINE) for R, t in poses])
+    frames = list(zip(imgs[:n_total], imgs[n_total:]))
+    gt = np.array([-R.T @ t for R, t in poses])
     kw = dict(n_features=512, seed=0, bf=fx.BASELINE * scene.fx, th_depth=fx.BASELINE * 40,
               enable_loop_closing=False)
     jparams = dense_tracking_params()
@@ -471,14 +558,15 @@ def mono_inertial_inputs(n_frames: int = MI_FRAMES):
     stream})."""
     import chip_smoke as cs
     import test_e2e_inertial as fx
+    from orbslam3_tpu.ops import lie
     from orbslam3_tpu.utils.datasets import RoomScene
     scene = RoomScene(seed=4, depth=6.0, half_w=4.0, half_h=2.5)
-    frames, gt = [], []
-    for i in range(n_frames):
-        R, t = fx.pose_at(i)
-        frames.append(scene.render(R, t))
-        gt.append(-R.T @ t)
-    streams = {"jax": fx.make_imu(n_frames),
+    poses = [fx.pose_at(i) for i in range(n_frames)]
+    frames = render_all(scene, poses)
+    gt = [-R.T @ t for R, t in poses]
+    with jitted(lie, "so3_log"):          # make_imu's one eager call per sample
+        jax_stream = fx.make_imu(n_frames)
+    streams = {"jax": jax_stream,
                "torch": cs.imu_stream(cs.mono_vi_pose_at, n_frames)[:3]}
     return scene, np.array(gt), frames, streams
 
@@ -716,8 +804,10 @@ def inertial_front_end_runs(kind: str) -> dict:
         scene.kb8_params = KB8
         R_rl = np.asarray(jlie.so3_exp(J(np.float32([0.0, 0.008, 0.0]))))
         t_rl = np.array([-0.101, 0.0, 0.0], np.float32)
-        views = [(scene.render(R, t), scene.render(R_rl @ R, R_rl @ t + t_rl))
-                 for R, t in orbit_trajectory(n, radius=0.5, forward=0.03)]
+        poses = orbit_trajectory(n, radius=0.5, forward=0.03)
+        imgs = render_all(scene, [(R, t) for R, t in poses]
+                          + [(R_rl @ R, R_rl @ t + t_rl) for R, t in poses])
+        views = list(zip(imgs[:n], imgs[n:]))
         K, wh, radius = KB8, (512, 512), 0.5
         kw = dict(cam_type=1)
     imu_ts, gyro, acc, vel = orbit_imu_stream(radius, 0.03, n)
