@@ -8,12 +8,20 @@ synchronous system (called inline per keyframe) and the asynchronous one
 (called from the mapper thread): every step gathers and writes back under the
 map lock and waits for the device outside it, so the tracker is never stalled
 behind a mapper round trip; ``abort_check`` skips local BA and keyframe
-culling while newer keyframes wait. Local BA is one call per phase in both
-modes: the reference's ``ba_chunk`` splits one compiled dispatch so that
-tracking kernels can interleave, and eager PyTorch already launches every
-operator by itself. Global BA (``global_ba``, after a loop correction) keeps
-the reference's schedule: phase 1, then chunks of 2 LM iterations with an
-abort check between them. ``_fuse_into`` is the loop closer's SearchAndFuse
+culling while newer keyframes wait. Every visual BA runs through
+``_run_ba``: with ``ba_chunk <= 0`` (the synchronous system) one two-phase
+``ba_ops.local_ba``; with ``ba_chunk = n > 0`` (the asynchronous system sets
+3, as the reference does) each phase as chunks of at most n LM iterations,
+each chunk restarting the damping at 1e-4 and re-linearizing, with the state
+kept on the device between chunks and the chi2 classification after each
+phase. The two schedules give different results on the same problem, so the
+async mapper runs the reference's async schedule. Global BA (``global_ba``,
+after a loop correction) keeps the reference's schedule: phase 1, then
+chunks of 2 LM iterations with an abort check between them; on a mesh of two
+or more shards (``mesh``, a device list from ``parallel.make_mesh``) a map of
+64 keyframes or more without a second camera takes the landmark-sharded
+solve of ``parallel/sharded_ba.py`` instead, as one abort granule whose
+observations all count as inliers. ``_fuse_into`` is the loop closer's SearchAndFuse
 and the merge's weld. A rig with depth (stereo, RGB-D) adds the right-column
 rows to BA (``bf``) and keeps close points in keyframe culling (the tracker's
 ``th_depth``); a two-camera fisheye rig (``rig``) adds the second camera's
@@ -24,7 +32,7 @@ bad-IMU check, VIBA1 and VIBA2, the monocular scale refinement), replaces
 local BA by the joint landmark + pose / velocity / bias BA over the last
 ``vi_window`` keyframes once initialized (``local_inertial_ba``), and keeps
 the temporal chain in keyframe culling (composing the preintegrations across
-a culled keyframe). The sharded branch is not ported (ROADMAP.md).
+a culled keyframe).
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from .. import native, resolve_device
 from ..ops import ba as ba_ops
 from ..ops import imu as imu_ops
 from ..ops import vi_ba as vi_ops
+from ..parallel import sharded_ba as sb
 from ..utils.timing import StageTimer
 from . import kernels
 from .device_map import kf_pool_for, mirror_for
@@ -74,6 +83,12 @@ class LocalMapper:
         # fn(R_rel, t_rel) after a propagated global BA, under the map lock:
         # the system shifts the tracker's live frame by the anchor correction
         self.on_poses_corrected = None
+        # LM iterations per chunk of a BA phase (0: one call per BA); the
+        # system sets 3 under async mapping
+        self.ba_chunk = 0
+        # the global BA's shards (``parallel.make_mesh``); None: every
+        # visible device of the mapper's type, resolved at the first global BA
+        self.mesh = None
         self._K_dev = torch.as_tensor(self.K, device=self.device)
         self._fuse_match = None
         map_state.on_remap["mapper"] = self._on_map_remap
@@ -533,8 +548,7 @@ class LocalMapper:
             return
         prob, all_kfs, fixed_mask, pts, o_src_kf, o_src_feat, n_obs = prob_data
         # the solve runs on the gathered snapshot, outside the lock
-        res = ba_ops.local_ba(prob, self._K_dev, cam_type=self.cam_type,
-                              chi2_th=ba_ops.CHI2_MONO, iters1=iters[0], iters2=iters[1])
+        res = self._run_ba(prob, iters)
         Kb = int(prob.R.shape[0])
         Pb = int(prob.pts.shape[0])
         Ob = int(prob.obs_kf.shape[0])
@@ -940,22 +954,23 @@ class LocalMapper:
             **self._rig_fields(o_cam, Ob))
         if abort_check is not None and abort_check():
             return False
-
-        def run(p, n_iters):
-            return ba_ops.local_ba(p, self._K_dev, cam_type=self.cam_type,
-                                   chi2_th=ba_ops.CHI2_MONO, iters1=n_iters, iters2=0)
-
-        res = run(prob, iters[0])
-        prob = prob._replace(R=res.R, t=res.t, pts=res.pts,
-                             obs_valid=prob.obs_valid & res.obs_inlier)
-        done = 0
-        while done < iters[1]:
-            if abort_check is not None and abort_check():
-                return False
-            res = run(prob, 2)
-            prob = prob._replace(R=res.R, t=res.t, pts=res.pts)
-            done += 2
+        # a mesh of two or more shards: the landmark-sharded solve replaces
+        # both phases (one abort granule, every observation an inlier)
+        res = self._try_sharded_global_ba(kfs, pts_xyz, o_kf, o_mp, o_uv, o_is2,
+                                          old_R, old_t, fixed_mask, iters)
+        if res is None:
+            res = self._run_ba(prob, (iters[0], 0))
+            prob = prob._replace(R=res.R, t=res.t, pts=res.pts,
+                                 obs_valid=prob.obs_valid & res.obs_inlier)
+            done = 0
+            while done < iters[1]:
+                if abort_check is not None and abort_check():
+                    return False
+                res = self._run_ba(prob, (2, 0))
+                prob = prob._replace(R=res.R, t=res.t, pts=res.pts)
+                done += 2
         Kn = len(kfs)
+        Kb, Pb = res.R.shape[0], res.pts.shape[0]
         buf = kernels.ba_result_packer()(res.R, res.t, res.pts, res.obs_inlier).cpu().numpy()
         Rn = buf[0: Kb * 9].view(np.float32).reshape(Kb, 3, 3)[:Kn]
         tn = buf[Kb * 9: Kb * 12].view(np.float32).reshape(Kb, 3)[:Kn]
@@ -1018,6 +1033,76 @@ class LocalMapper:
             m.touch()
         if self.on_poses_corrected is not None:
             self.on_poses_corrected(Ra_rel.astype(np.float32), ta_rel.astype(np.float32))
+
+    def _try_sharded_global_ba(self, kfs, pts_xyz, o_kf, o_mp, o_uv, o_is2,
+                               old_R, old_t, fixed_mask, iters, min_kfs: int = 64):
+        """The landmark-sharded full LM solve (``parallel/sharded_ba.py``) of
+        a global BA, or None where the single-device path runs: a mesh of
+        one shard, fewer than ``min_kfs`` keyframes, or a second camera (the
+        sharded solve carries one camera's rows). The observations are
+        reordered into shards, so the result reports every observation as
+        an inlier and nothing is erased (the next local BA reclassifies)."""
+        if self.mesh is None:
+            self.mesh = sb.make_mesh(device=self.device.type)
+        if len(self.mesh) < 2 or len(kfs) < min_kfs or self.rig is not None:
+            return None
+        n_sh = len(self.mesh)
+        n_pts_pad, _, out_mp, out_valid, outs = sb.partition_by_landmark(
+            o_mp.astype(np.int64), len(pts_xyz), n_sh,
+            {"kf": o_kf.astype(np.int32), "uv": o_uv.astype(np.float32),
+             "w": o_is2.astype(np.float32)})
+        pts_pad = np.zeros((n_pts_pad, 3), np.float32)
+        pts_pad[: len(pts_xyz)] = pts_xyz
+        solver = sb.make_sharded_ba_solver(self.mesh, n_kf=len(kfs), cam_type=self.cam_type,
+                                           iters1=iters[0], iters2=iters[1])
+        dev = self.mesh[0]
+        on = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        R, t, pts, _ = solver(on(old_R[kfs]), on(old_t[kfs]), on(fixed_mask), on(pts_pad),
+                              on(outs["kf"]), on(out_mp), on(outs["uv"]),
+                              on(outs["w"] * out_valid), on(self.K))
+        self.stats["sharded_gba_runs"] = self.stats.get("sharded_gba_runs", 0) + 1
+        n_obs = len(o_kf)
+        return ba_ops.BAResult(R=R, t=t, pts=pts[: len(pts_xyz)],
+                               obs_inlier=torch.ones(n_obs, dtype=torch.bool, device=dev),
+                               chi2=torch.zeros((), device=dev),
+                               n_inlier=torch.tensor(n_obs, dtype=torch.int32, device=dev))
+
+    def _run_ba(self, prob, iters):
+        """A two-phase visual BA of ``iters = (iters1, iters2)`` LM
+        iterations: one ``ba_ops.local_ba`` when ``ba_chunk <= 0``, else
+        ``_run_ba_chunked``."""
+        chunk = int(self.ba_chunk or 0)
+        if chunk <= 0:
+            return ba_ops.local_ba(prob, self._K_dev, cam_type=self.cam_type,
+                                   chi2_th=ba_ops.CHI2_MONO, iters1=iters[0], iters2=iters[1])
+        return self._run_ba_chunked(prob, iters, chunk)
+
+    def _run_ba_chunked(self, prob, iters, chunk):
+        """The two-phase schedule as chunks of at most ``chunk`` LM
+        iterations (the reference's async mapper: tracking work interleaves
+        between chunks). Each chunk re-linearizes at its start and restarts
+        the damping at 1e-4; the state stays on the device between chunks;
+        the chi2 classification runs after each phase that iterated."""
+        p = prob
+        inlier = torch.ones(p.obs_kf.shape[0], dtype=torch.bool, device=p.pts.device)
+        chi2 = None
+        for phase_iters in iters:
+            done = 0
+            while done < int(phase_iters):
+                n = min(chunk, int(phase_iters) - done)
+                R, t, pts = ba_ops.ba_iterate(p, n, inlier, self._K_dev, self.cam_type,
+                                              ba_ops.CHI2_MONO)
+                p = p._replace(R=R, t=t, pts=pts)
+                done += n
+            if phase_iters:
+                inlier, chi2 = ba_ops.classify_inliers(p, self._K_dev, self.cam_type,
+                                                       ba_ops.CHI2_MONO)
+        if chi2 is None:
+            inlier, chi2 = ba_ops.classify_inliers(p, self._K_dev, self.cam_type,
+                                                   ba_ops.CHI2_MONO)
+        return ba_ops.BAResult(R=p.R, t=p.t, pts=p.pts, obs_inlier=inlier,
+                               chi2=torch.sum(torch.where(inlier, chi2, 0.0)),
+                               n_inlier=torch.sum(inlier, dtype=torch.int32))
 
     @staticmethod
     def _bucket(n: int, buckets):

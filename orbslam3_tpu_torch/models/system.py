@@ -133,6 +133,10 @@ class SlamSystem:
         self.mapper.preserve_temporal_chain = self.tracker.imu_enabled
         self.mapper.on_bad_imu = self._on_bad_imu
         self.mapper.bf = self._bf
+        # async mapping runs each BA phase in chunks of 3 LM iterations, as the
+        # reference does (a different result from one call per phase); sync
+        # keeps one call
+        self.mapper.ba_chunk = 3 if self.runtime is not None else 0
         self.mapper.rig = self.tracker.rig
         self.loop_closer = None
         if self._enable_lc:

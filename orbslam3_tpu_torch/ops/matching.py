@@ -115,6 +115,42 @@ def octave_mask(pred_octave: torch.Tensor, feat_octave: torch.Tensor,
     return (d >= -lo) & (d <= hi)
 
 
+def search_by_projection(desc_a, valid_a, pred_xy, pred_octave, desc_b, valid_b, feat_xy,
+                         feat_octave, radius, max_dist: int = TH_HIGH,
+                         ratio: float | None = None, angle_a=None, angle_b=None,
+                         check_rotation: bool = False, octave_lo: int = 1, octave_hi: int = 1):
+    """Projection-guided matching: map-point descriptors (A) at their
+    predicted pixels and octaves against frame features (B) within a search
+    window and an octave range (the reference's SearchByProjection family).
+    Returns (idx, best, ok)."""
+    dist = hamming_matrix(desc_a, desc_b)
+    mask = (valid_a[:, None] & valid_b[None, :]
+            & window_mask(pred_xy, feat_xy, radius)
+            & octave_mask(pred_octave, feat_octave, octave_lo, octave_hi))
+    idx, best, ok = masked_match(dist, mask, max_dist, ratio)
+    ok = resolve_duplicates(idx, best, ok, desc_b.shape[0])
+    if check_rotation and angle_a is not None:
+        ok = rotation_consistency(angle_a, angle_b, idx, ok)
+    return idx, best, ok
+
+
+def epipolar_mask(rays1: torch.Tensor, xy2: torch.Tensor, E: torch.Tensor,
+                  cam_params: torch.Tensor, sigma2_by_octave: torch.Tensor,
+                  octave2: torch.Tensor, th_chi2: float = 3.84) -> torch.Tensor:
+    """(N,M) mask of the pairs that satisfy the epipolar constraint: the
+    pixel distance of x2 (pinhole ``cam_params``) to the epipolar line
+    E·ray1 (E: c2←c1) below th_chi2·σ² of x2's octave (the reference's
+    CheckDistEpipolarLine). rays1 (N,3) unit-z rays of camera 1."""
+    fx, fy, cx, cy = cam_params[0], cam_params[1], cam_params[2], cam_params[3]
+    line = rays1 @ E.T                                                # (N,3)
+    a = line[:, 0] / fx
+    b = line[:, 1] / fy
+    c = line[:, 2] - line[:, 0] * cx / fx - line[:, 1] * cy / fy
+    num = a[:, None] * xy2[None, :, 0] + b[:, None] * xy2[None, :, 1] + c[:, None]
+    dsq = (num * num) / torch.clamp((a * a + b * b)[:, None], min=1e-12)
+    return dsq < th_chi2 * sigma2_by_octave[octave2.long()][None, :]
+
+
 def search_for_initialization(desc1, valid1, xy1, angle1, desc2, valid2, xy2, angle2,
                               window: float = 100.0, ratio: float = 0.9,
                               max_dist: int = TH_LOW):

@@ -1,8 +1,8 @@
 """Batched PnP RANSAC and maximum-likelihood refinement for relocalization.
 
 Port of ``orbslam3_tpu/ops/pnp.py`` (``PnPResult``, ``_dlt_pnp``,
-``pnp_ransac``, ``mlpnp_refine``; the EPnP variants only the reference's
-tests reach are not ported). Every RANSAC hypothesis solves a 6-point linear
+``pnp_ransac``, ``mlpnp_refine``, and the batched EPnP ``epnp`` with its
+RANSAC wrapper ``epnp_ransac``). Every RANSAC hypothesis solves a 6-point linear
 PnP (DLT on the 3x4 projection matrix through a 12x12 eigendecomposition) in
 one batch, is orthonormalized onto SE(3) and scored by reprojection chi2
 against all matches at once. The bearing-vector formulation keeps it
@@ -58,6 +58,112 @@ def _dlt_pnp(xw: torch.Tensor, xn: torch.Tensor):
     scale = torch.mean(sS * fix, dim=-1)
     t = P[:, :, 3] / torch.clamp(scale, min=1e-12)[:, None]
     return R, t
+
+
+def _control_points(xw: torch.Tensor) -> torch.Tensor:
+    """EPnP control points by PCA: the centroid and the principal axes
+    scaled by their standard deviations, the smaller axes floored at 1e-3 of
+    the largest (a (near-)planar set would otherwise give a singular basis).
+    xw (B,n,3) → (B,4,3)."""
+    c0 = torch.mean(xw, dim=1)
+    d = xw - c0[:, None]
+    cov = d.transpose(1, 2) @ d / xw.shape[1]
+    w, v = torch.linalg.eigh(cov)                                     # ascending
+    std = torch.sqrt(torch.clamp(w, min=1e-12))
+    std = torch.maximum(std, 1e-3 * std[..., -1:])
+    ax = v.transpose(1, 2) * std[..., None]
+    return torch.cat([c0[:, None], c0[:, None] + ax], dim=1)
+
+
+def _barycentric(xw: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """alphas (B,n,4) with xw = Σ_j a_j C_j and Σ_j a_j = 1."""
+    M = (C[:, 1:] - C[:, :1]).transpose(1, 2)                         # (B,3,3)
+    rhs = (xw - C[:, :1]).transpose(1, 2)                             # (B,3,n)
+    a123 = torch.linalg.solve_ex(M, rhs, check_errors=False)[0].transpose(1, 2)
+    a0 = 1.0 - torch.sum(a123, dim=-1, keepdim=True)
+    return torch.cat([a0, a123], dim=-1)
+
+
+_CP_PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
+
+
+def epnp(xw: torch.Tensor, xn: torch.Tensor, n_gn: int = 10):
+    """Batched EPnP: xw (B,n,3) world points, xn (B,n,2) normalized image
+    coordinates → (R (B,3,3), t (B,3)) world→camera. The points are written
+    in 4 control points, the 4 smallest eigenvectors of MᵀM span the camera
+    control points, Gauss-Newton fits their 4 weights to the 6 control-point
+    distances (seeded by the dominant vector's scale), then a fixed-scale
+    Horn alignment maps world to camera control points. Eigenvectors come
+    with a free sign: the weights absorb it, the cheirality flip fixes the
+    dominant one."""
+    B, n, _ = xw.shape
+    dtype, dev = xw.dtype, xw.device
+    C = _control_points(xw)
+    alph = _barycentric(xw, C)                                        # (B,n,4)
+    u = xn[..., 0:1]
+    v = xn[..., 1:2]
+    z3 = torch.zeros((B, n, 1), dtype=dtype, device=dev)
+    one = torch.ones((B, n, 1), dtype=dtype, device=dev)
+    # rows Σ_j a_j (xc_j − u zc_j) = 0 and Σ_j a_j (yc_j − v zc_j) = 0 in
+    # the unknowns [c1x c1y c1z ... c4x c4y c4z]
+    r1 = torch.cat([alph[..., j:j + 1] * torch.cat([one, z3, -u], -1) for j in range(4)], -1)
+    r2 = torch.cat([alph[..., j:j + 1] * torch.cat([z3, one, -v], -1) for j in range(4)], -1)
+    M = torch.cat([r1, r2], dim=1)                                    # (B,2n,12)
+    _, vecs = torch.linalg.eigh(M.transpose(1, 2) @ M)
+    V = vecs[..., :4].transpose(1, 2).reshape(B, 4, 4, 3)             # 4 null vectors
+    ii = [p[0] for p in _CP_PAIRS]
+    jj = [p[1] for p in _CP_PAIRS]
+    dV = V[:, :, ii] - V[:, :, jj]                                    # (B,4,6,3)
+    dw = C[:, ii] - C[:, jj]                                          # (B,6,3)
+    d2w = torch.sum(dw * dw, dim=-1)                                  # (B,6)
+    nv0 = torch.sum(dV[:, 0] * dV[:, 0], dim=-1)
+    b0 = (torch.sum(torch.sqrt(nv0 * d2w), -1)
+          / torch.clamp(torch.sum(nv0, -1), min=1e-12))
+    zero = torch.zeros_like(b0)
+    betas = torch.stack([b0, zero, zero, zero], dim=-1)              # (B,4)
+    eye4 = torch.eye(4, dtype=dtype, device=dev)
+    for _ in range(n_gn):
+        dc = torch.einsum("bk,bkps->bps", betas, dV)                  # (B,6,3)
+        f = torch.sum(dc * dc, -1) - d2w                              # (B,6)
+        Jb = 2.0 * torch.einsum("bps,bkps->bpk", dc, dV)              # (B,6,4)
+        JtJ = Jb.transpose(1, 2) @ Jb + 1e-9 * eye4
+        g = torch.einsum("bpk,bp->bk", Jb, f)
+        betas = betas - torch.linalg.solve_ex(JtJ, g[..., None], check_errors=False)[0][..., 0]
+    Cc = torch.einsum("bk,bkps->bps", betas, V)                       # (B,4,3)
+    # cheirality: the mean point depth must be positive
+    pc = alph @ Cc
+    Cc = Cc * torch.where(torch.mean(pc[..., 2], -1) < 0, -1.0, 1.0)[:, None, None]
+    mu_w = torch.mean(C, dim=1)
+    mu_c = torch.mean(Cc, dim=1)
+    Hm = (Cc - mu_c[:, None]).transpose(1, 2) @ (C - mu_w[:, None])
+    uS, _, vtS = torch.linalg.svd(Hm)
+    det = torch.linalg.det(uS @ vtS)
+    fix = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    R = (uS * fix[:, None, :]) @ vtS
+    t = mu_c - (R @ mu_w[..., None])[..., 0]
+    return R, t
+
+
+def epnp_ransac(xw: torch.Tensor, rays: torch.Tensor, valid: torch.Tensor,
+                rand_sets: torch.Tensor, inv_sigma2: torch.Tensor,
+                chi2_th: float = 5.991, focal: float = 458.0,
+                min_inliers: int = 10) -> PnPResult:
+    """RANSAC-wrapped EPnP (the reference's PnPsolver RANSAC loop; MLPnP
+    replaced it for relocalization): one EPnP per hypothesis of
+    ``rand_sets`` (B,s), s ≥ 4, scored as :func:`pnp_ransac` scores."""
+    xn = rays[..., :2] / rays[..., 2:3]
+    sets = rand_sets.long()
+    R, t = epnp(xw[sets], xn[sets])
+    xc = xw[None] @ R.transpose(1, 2) + t[:, None, :]
+    z = torch.clamp(xc[..., 2], min=1e-6)
+    pred = xc[..., :2] / z[..., None]
+    err2 = torch.sum((pred - xn[None]) ** 2, dim=-1) * (focal * focal)
+    chi2 = err2 * inv_sigma2[None]
+    inl = (chi2 < chi2_th) & valid[None] & (xc[..., 2] > 0.05)
+    counts = torch.sum(inl, dim=-1, dtype=torch.int32)
+    best = torch.argmax(counts)
+    return PnPResult(success=counts[best] >= min_inliers, R=R[best], t=t[best],
+                     inliers=inl[best], n_inliers=counts[best])
 
 
 def pnp_ransac(xw: torch.Tensor, rays: torch.Tensor, valid: torch.Tensor,

@@ -1,9 +1,12 @@
-"""Visual-inertial optimization: the frame-rate 15-dim pose-inertial solve and
-the joint landmark + pose / velocity / bias bundle adjustment.
+"""Visual-inertial optimization: the sliding-window pose / velocity / bias
+smoother, the frame-rate 15-dim pose-inertial solve and the joint landmark +
+pose / velocity / bias bundle adjustment.
 
-Port of ``pose_inertial_optimize`` and ``vi_joint_ba`` of
-``orbslam3_tpu/ops/vi_ba.py`` (reference PoseInertialOptimizationLastFrame,
-src/Optimizer.cc:7785, and LocalInertialBA / FullInertialBA, :4314 / :495).
+Port of ``vi_window_optimize``, ``pose_inertial_optimize`` and
+``vi_joint_ba`` of ``orbslam3_tpu/ops/vi_ba.py`` (the pose side of the
+reference's LocalInertialBA, src/Optimizer.cc:4314, against fixed landmarks;
+PoseInertialOptimizationLastFrame, :7785; LocalInertialBA / FullInertialBA,
+:4314 / :495).
 The fixed iteration counts and the accept / reject rule are the reference
 package's; Jacobians of the packed residuals are forward-mode derivatives on
 batched dual tensors (``lie.jacobian_fwd``, ``_pair_jacobians``).
@@ -40,6 +43,105 @@ def _tri_inv(L):
 
 def _mv(M, v):
     return (M @ v[..., None])[..., 0]
+
+
+class VIBAResult(NamedTuple):
+    R: torch.Tensor       # (K,3,3) world→cam
+    t: torch.Tensor       # (K,3)
+    vels: torch.Tensor    # (K,3)
+    bg: torch.Tensor
+    ba: torch.Tensor
+    cost: torch.Tensor
+
+
+def vi_window_optimize(
+    R0, t0, vels0, bg0, ba0,
+    pts_w, obs_kf, obs_uv, obs_inv_sigma2, obs_valid,
+    dT, dR, dV, dP, JRg, JVg, JVa, JPg, JPa, pre_cov, pair_valid,
+    cam_params, fixed_pose, cam_type: int = 0, iters: int = 8,
+    huber_chi2: float = 5.991, prior_g: float = 1e2, prior_a: float = 1e5,
+) -> VIBAResult:
+    """Optimize K poses, K velocities and one shared gyro / accelerometer
+    bias against fixed landmarks: Huber-weighted reprojection rows, 9-dim
+    preintegration rows between consecutive keyframes (whitened by the
+    preintegration covariance), and the bias priors. ``iters`` damped
+    Gauss-Newton steps on the packed vector (pose deltas, absolute
+    velocities and biases), each accepted only if it lowers the cost.
+
+    Shapes: poses (K,…); visual rows (O,) with the landmark of each row in
+    ``pts_w`` (O,3); inertial terms (K-1,…). ``fixed_pose`` (K,) nodes keep
+    their pose (the reference fixes the window's boundary keyframe). The
+    Jacobian is one forward-mode pass over the packed vector
+    (``lie.jacobian_fwd``, under ``lie.FORWARD_AD_LOCK``)."""
+    K = R0.shape[0]
+    dtype, dev = t0.dtype, t0.device
+    huber = float(huber_chi2) ** 0.5
+    L = _chol(pre_cov + 1e-10 * torch.eye(9, dtype=dtype, device=dev))
+    Linv = _tri_inv(L)
+    n_pose, n_vel = 6 * K, 3 * K
+    n = n_pose + n_vel + 6
+    g = imu_ops.gravity_vec(dtype, dev)
+    sw = torch.sqrt(obs_inv_sigma2)[:, None]
+    w_obs = obs_valid.to(dtype)
+    tt = dT[:, None]
+    kf = obs_kf.long()
+
+    def unpack(p):
+        """(B,n) packed vectors → (R, t, vels, bg, ba), each with the batch."""
+        B = p.shape[0]
+        dRp, dtp = lie.se3_exp(p[:, :n_pose].reshape(B, K, 6))
+        Rn, tn = lie.se3_compose(dRp, dtp, R0, t0)
+        Rn = torch.where(fixed_pose[:, None, None], R0, Rn)
+        tn = torch.where(fixed_pose[:, None], t0, tn)
+        vels = p[:, n_pose:n_pose + n_vel].reshape(B, K, 3)
+        return Rn, tn, vels, p[:, n_pose + n_vel:n_pose + n_vel + 3], p[:, n_pose + n_vel + 3:]
+
+    def residuals(p):
+        """(B,n) → (B,m)."""
+        B = p.shape[0]
+        Rn, tn, vels, bg, ba = unpack(p)
+        # visual
+        xc = _mv(Rn[:, kf], pts_w) + tn[:, kf]
+        pos = xc[..., 2] > 1e-3
+        xc = torch.cat([xc[..., :2], torch.clamp(xc[..., 2:3], min=1e-2)], dim=-1)
+        rv = (obs_uv - cam_ops.project(cam_type, cam_params, xc)) * sw
+        chi = torch.sum(rv * rv, dim=-1)
+        w_h = torch.sqrt(torch.where(chi > huber * huber,
+                                     huber / torch.sqrt(chi + 1e-12), 1.0))
+        rv = rv * (w_h * w_obs * pos.to(dtype))[..., None]
+        # inertial: body = camera (Tbc = I), the body pose is the inverse
+        R_wb = Rn.transpose(-1, -2)
+        p_wb = -_mv(R_wb, tn)
+        dbg = bg - bg0
+        dba = ba - ba0
+        dR_c = dR @ lie.so3_exp(_mv(JRg, dbg[:, None]))
+        dV_c = dV + _mv(JVg, dbg[:, None]) + _mv(JVa, dba[:, None])
+        dP_c = dP + _mv(JPg, dbg[:, None]) + _mv(JPa, dba[:, None])
+        R1, R2 = R_wb[:, :-1], R_wb[:, 1:]
+        p1, p2 = p_wb[:, :-1], p_wb[:, 1:]
+        v1, v2 = vels[:, :-1], vels[:, 1:]
+        R1T = R1.transpose(-1, -2)
+        er = lie.so3_log(dR_c.transpose(-1, -2) @ R1T @ R2)
+        ev = _mv(R1T, v2 - v1 - g * tt) - dV_c
+        ep = _mv(R1T, p2 - p1 - v1 * tt - 0.5 * g * tt * tt) - dP_c
+        ri = _mv(Linv, torch.cat([er, ev, ep], dim=-1)) * pair_valid.to(dtype)[:, None]
+        # bias priors
+        rb = torch.cat([prior_g ** 0.5 * dbg, prior_a ** 0.5 * dba], dim=-1)
+        return torch.cat([rv.reshape(B, -1), ri.reshape(B, -1), rb], dim=-1)
+
+    p = torch.cat([torch.zeros(n_pose, dtype=dtype, device=dev), vels0.reshape(-1), bg0, ba0])
+    lam = torch.tensor(1e-4, dtype=dtype, device=dev)
+    eye = torch.eye(n, dtype=dtype, device=dev)
+    for _ in range(iters):
+        r, J = lie.jacobian_fwd(residuals, p)
+        H = J.T @ J + lam * eye
+        p_new = p + _solve(H, -J.T @ r)
+        good = torch.sum(residuals(p_new[None])[0] ** 2) < torch.sum(r ** 2)
+        p = torch.where(good, p_new, p)
+        lam = torch.where(good, lam * 0.5, lam * 5.0)
+    Rn, tn, vels, bg, ba = (x[0] for x in unpack(p[None]))
+    return VIBAResult(R=Rn, t=tn, vels=vels, bg=bg, ba=ba,
+                      cost=torch.sum(residuals(p[None])[0] ** 2))
 
 
 class PoseInertialResult(NamedTuple):

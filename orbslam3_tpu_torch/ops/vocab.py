@@ -16,8 +16,7 @@ Port of ``orbslam3_tpu/ops/vocab.py`` (DBoW2's ``TemplatedVocabulary``
 Descriptors are (N, 8) words: uint32 on the host, their int32 bit patterns on
 the device (``view(np.int32)``). Word ids and sparse ids are integers and equal
 the reference's bit for bit; weights agree to float32 rounding of one sum.
-The dense ``l1_scores`` of the reference (reached only by its tests) is not
-ported.
+``l1_scores`` is the dense L1 scorer of one BoW vector against a database.
 """
 from __future__ import annotations
 
@@ -349,6 +348,13 @@ def load_dbow2_text(path: str) -> GeneralVocabulary:
         child_valid.append(cval)
 
     return GeneralVocabulary(levels, k, child_desc, child_id, child_valid, word_weight)
+
+
+def l1_scores(query: torch.Tensor, database: torch.Tensor) -> torch.Tensor:
+    """DBoW2 L1 similarity of one dense BoW vector (W,) against a database
+    (K,W) → (K,): s = 2·Σ min(vᵢ, wᵢ), which is 1 − ½|v−w|₁ for
+    L1-normalized vectors (the reference's TemplatedVocabulary score)."""
+    return 2.0 * torch.sum(torch.minimum(query[None, :], database), dim=-1)
 
 
 def random_descriptors(n: int, seed: int = 0) -> np.ndarray:

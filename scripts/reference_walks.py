@@ -4,7 +4,7 @@
         --phase slice|headline|loop|merge|drifted|stereo|vi|mono-vi|rgbd|fisheye|stereo-merge
         [--frames N] [--features N] [--mapping sync|async] [--pipeline 0|1] [--loop-closing 0|1]
         [--width full|test] [--device cpu|cuda] [--repeat N] [--stop-after N]
-        [--record FILE] [--deterministic] [--pose-starts N]
+        [--record FILE] [--deterministic] [--pose-starts N] [--ba-chunk N]
     python3 scripts/reference_walks.py --compare JAX_FILE TORCH_FILE
 
 Drives the very functions chip_smoke.py drives on the GPU (``run_walk``,
@@ -27,7 +27,7 @@ the card with ``--device cuda``), at the same full-size configuration
   async``, at 752x480 with 1024 features (``--width full``) or at 376x240 with
   256 features (``--width test``), ``--repeat`` times on one rendering (each
   run ending ``--stop-after`` frames after its first correction, if given),
-  then the relocalization scenario on the last run's system. ``--record``
+  each followed by the relocalization scenario on that run's system. ``--record``
   writes, per frame, the tracking state, inliers and keyframes' source frames
   and, at every ``LoopCloser._detect_candidates`` call, the query keyframe,
   every older keyframe of the database with its covisibility weight to the
@@ -58,6 +58,10 @@ the card with ``--device cuda``), at the same full-size configuration
   orbits (512x512, their first 16 frames) with 1500 features, loop closing on;
 - ``stereo-merge``: tests/test_atlas.py's stereo merge found by the keyframe
   database's query.
+
+``--ba-chunk N`` sets every mapper's ``ba_chunk`` (LM iterations per
+chunk of a BA phase; 0 runs each phase as one call) whatever the mapping
+mode, so that async mapping can run the sync schedule and back.
 
 ``--deterministic`` turns PyTorch's deterministic algorithms on for the port
 (no atomics with a free summation order; an operator without a deterministic
@@ -159,6 +163,19 @@ def recorder(system_cls):
     def restore():
         system_cls.__init__ = init
     return rec, restore
+
+
+def with_ba_chunk(system_cls, chunk: int):
+    """A subclass of ``system_cls`` whose every mapper (each rebinding of
+    the map: spawn, merge, load) runs its BA phases with ``ba_chunk =
+    chunk``."""
+    class Chunked(system_cls):
+        def _bind_map(self, *a, **k):
+            out = super()._bind_map(*a, **k)
+            self.mapper.ba_chunk = chunk
+            return out
+    Chunked.__name__ = system_cls.__name__
+    return Chunked
 
 
 def compare(a: dict, b: dict) -> None:
@@ -280,6 +297,8 @@ def main():
     ap.add_argument("--threads", type=int, default=4, help="torch CPU threads")
     ap.add_argument("--deterministic", action="store_true",
                     help="torch.use_deterministic_algorithms(True) for the port")
+    ap.add_argument("--ba-chunk", type=int, default=None,
+                    help="set every mapper's ba_chunk to this (default: the system's)")
     opt = ap.parse_args()
     if opt.compare:
         with open(opt.compare[0]) as fa, open(opt.compare[1]) as fb:
@@ -298,6 +317,8 @@ def main():
         torch.use_deterministic_algorithms(True, warn_only=True)
     import chip_smoke as cs
     kw = jax_classes() if opt.package == "jax" else {"device": opt.device}
+    if opt.ba_chunk is not None:
+        kw["system_cls"] = with_ba_chunk(kw.get("system_cls") or cs.SlamSystem, opt.ba_chunk)
     where = "the CPU" if opt.package == "jax" or opt.device == "cpu" else "the card"
     if where == "the card":
         print(cs.card_line())
@@ -308,7 +329,7 @@ def main():
     params_kw = {"pose_starts": opt.pose_starts} if opt.pose_starts != 1 else None
     out = {"package": opt.package, "phase": opt.phase, "device": opt.device,
            "mapping": mapping, "pipeline": pipeline, "loop_closing": lc,
-           "pose_starts": opt.pose_starts}
+           "pose_starts": opt.pose_starts, "ba_chunk": opt.ba_chunk}
     name = (f"{opt.package} on {where}, {opt.phase} ({mapping}, pipeline {pipeline}, "
             f"loop closing {lc})")
     if opt.phase == "drifted":
@@ -388,21 +409,22 @@ def main():
         if opt.record:
             system_cls = kw.get("system_cls") or cs.SlamSystem
             log, restore = recorder(system_cls)
-        runs = []
+        runs, relocs = [], []
         for rep in range(opt.repeat):
             slam, rec = cs.run_loop_walk(scene, poses, imgs, 1024 if full else 256, mapping,
                                          n_frames=n, stop_after=opt.stop_after, **kw)
             print(f"{name}, {opt.width} width, run {rep}: {json.dumps(rec)}")
             runs.append(rec)
+            if opt.record:
+                restore()
+                with open(opt.record, "w") as f:
+                    json.dump(dict(package=opt.package, width=opt.width, walk=rec, **log), f)
+            reloc = cs.run_reloc(slam, scene, imgs, rec["frames"])
+            print(f"{opt.package} on {where}, run {rep}, reloc: {json.dumps(reloc)}")
+            relocs.append(reloc)
             if rep + 1 < opt.repeat:
                 slam.shutdown(print_times=False)
-        if opt.record:
-            restore()
-            with open(opt.record, "w") as f:
-                json.dump(dict(package=opt.package, width=opt.width, walk=runs[-1], **log), f)
-        reloc = cs.run_reloc(slam, scene, imgs, runs[-1]["frames"])
-        print(f"{opt.package} on {where}, reloc: {json.dumps(reloc)}")
-        out.update(walk=runs, reloc=reloc, width=opt.width)
+        out.update(walk=runs, reloc=relocs, width=opt.width)
     slam.shutdown(print_times=False)
     print(json.dumps(out))
 

@@ -31,21 +31,22 @@ def _project(R, t, pts):
     return np.stack([458 * pc[:, 0] / z + 376, 458 * pc[:, 1] / z + 240], -1), pc[:, 2] > 0.5
 
 
-def drifted_line_map(mod):
-    """A corridor of 12 keyframes whose drift grows along the chain
-    (tests/test_gba_propagation.py's fixture); ``mod`` is either package's
-    ``models.map``."""
+def drifted_line_map(mod, n_kf: int = 12, step: float = 1.2):
+    """A corridor of ``n_kf`` keyframes ``step`` apart whose drift grows
+    along the chain (tests/test_gba_propagation.py's fixture at its 12 and
+    1.2); ``mod`` is either package's ``models.map``."""
     rng = np.random.default_rng(0)
-    n_kf, n_pts = 12, 400
+    n_pts = 400
     pts = np.stack([rng.uniform(-4, 4, n_pts), rng.uniform(-3, 3, n_pts),
                     rng.uniform(6, 14, n_pts) + rng.uniform(0, 10, n_pts)], -1)
     pts[:, 2] += np.linspace(0, 10, n_pts)
     desc = rng.integers(0, 2 ** 32, (n_pts, 8), dtype=np.uint32)
-    m = mod.MapState(mod.MapConfig(max_keyframes=64, max_map_points=4096, n_features=256))
+    m = mod.MapState(mod.MapConfig(max_keyframes=max(64, 2 * n_kf), max_map_points=4096,
+                                   n_features=256))
     gt_t = []
     for k in range(n_kf):
         R = np.eye(3, dtype=np.float32)
-        t_gt = np.asarray([0, 0, -1.2 * k], np.float32)
+        t_gt = np.asarray([0, 0, -step * k], np.float32)
         gt_t.append(t_gt)
         drift = np.asarray([0.4, 0.0, 0.0], np.float32) * (k / (n_kf - 1)) ** 2
         uv, ok = _project(R, t_gt, pts)
