@@ -115,6 +115,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                 on the walk's first 30 frames (tracked share, an ATE bound from
                 the JAX package's CPU run of the same frames) with the
                 multi-start solve on the card against the CPU;
+ 18. tools    - (run right after facade, on its system) the two user tools:
+                scripts/train_vocab_torch.py at a tiny size on the card (one
+                scene, 4 images, 2 levels), the corpus's words on the card
+                bit-equal to the same vocabulary's on the CPU, the file loaded
+                into a LoopCloser on the card; scripts/evaluate_ate_torch.py
+                on the slice's TUM file, with and without scale, against
+                utils.evaluation.evaluate_trajectory on the same arrays;
 every system phase is checked for initialization, tracked fraction, ATE
 (scale-aligned for a monocular rig, metric for one with depth), the errors the
 threads and the BoW query caught (all must be 0), the packaged vocabulary, and
@@ -403,6 +410,8 @@ FACADE_MS_STARTS = 7
 FACADE_MS_JAX_ATE = 0.00989016883615149
 FACADE_MS_ATE_MAX = max(1.5 * FACADE_MS_JAX_ATE, FACADE_MS_JAX_ATE + 0.02)
 FACADE_DRIVER_FRAMES = 10
+TOOLS_IMAGES = 4         # the vocabulary tool's corpus in the tools phase
+TOOLS_ATE_TOL = 1e-5     # the trajectory file's decimals against the arrays
 ERROR_COUNTS = ("mapper_errors", "lc_errors", "gba_errors", "reloc_query_errors",
                 "merge_errors")
 FACADE_WRITERS = {"save_trajectory_tum": 8, "save_trajectory_euroc": 8,
@@ -2809,6 +2818,81 @@ def phase_stereo_merge(views):
     return r
 
 
+def _load_script(name: str):
+    """A module of the repository's scripts/ directory, by path."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_tools(slam, poses):
+    """The two user tools on the card: ``scripts/train_vocab_torch.py`` at a
+    tiny size (one scene, TOOLS_IMAGES images, 2 levels: 100 words) with its
+    default device, the card; the words that the written vocabulary gives the
+    corpus on the card (the tool's idf pass, and the port's ``LoopCloser`` on
+    the card after loading the file) held bit-equal against the same
+    vocabulary's transform on the CPU; then ``scripts/evaluate_ate_torch.py``
+    on the slice's TUM trajectory against the walk's ground truth, with and
+    without scale, held against ``utils.evaluation.evaluate_trajectory`` on
+    the exported arrays (the file carries 6-7 decimals: TOOLS_ATE_TOL)."""
+    import tempfile
+    from orbslam3_tpu_torch.models.map import MapConfig, MapState
+    from orbslam3_tpu_torch.ops.vocab import BinaryVocabulary
+    train_vocab, evaluate_ate = _load_script("train_vocab_torch"), _load_script(
+        "evaluate_ate_torch")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vocab.npz")
+        t0 = time.perf_counter()
+        vocab, corpus, words = train_vocab.main([path, "--levels", "2", "--scenes", "1",
+                                                 "--images", str(TOOLS_IMAGES)])
+        _sync()
+        out["train_s"] = time.perf_counter() - t0
+        loaded = BinaryVocabulary.load(path)
+        lc = LoopCloser(MapState(MapConfig(n_features=512)),
+                        np.array([229.3, 228.6, 188.0, 120.0], np.float32), (376, 240),
+                        vocab=loaded)
+        tf_cpu = loaded.transform_fn(device="cpu")
+        n_desc = mismatched = 0
+        for d, w in zip(corpus, words):
+            ones = torch.ones(len(d), dtype=torch.bool)
+            cpu = tf_cpu(torch.as_tensor(d), ones).numpy()
+            card = lc.transform(torch.as_tensor(d, device=lc.device),
+                                ones.to(lc.device)).cpu().numpy()
+            n_desc += len(d)
+            mismatched += int((cpu != w).sum() + (cpu != card).sum())
+        out.update(words=loaded.n_words, images=len(corpus), descriptors=n_desc,
+                   word_mismatches=mismatched, loop_closer_device=str(lc.device),
+                   seen_words=int((loaded.idf < np.log(len(corpus))).sum()))
+        if lc.device.type != "cuda" or loaded.n_words != 100 or n_desc < 100 * len(corpus):
+            raise AssertionError(f"tools: the trained vocabulary {out}")
+        if mismatched:
+            raise AssertionError(f"tools: {mismatched} words differ between the card and "
+                                 f"the CPU")
+        # the ATE tool on the slice's trajectory file
+        gt = np.array([-R.T @ t for (R, t) in poses])
+        gt_ts = np.arange(len(poses)) / 20.0
+        gt_path, est_path = os.path.join(tmp, "gt.txt"), os.path.join(tmp, "est.txt")
+        with open(gt_path, "w") as f:
+            for ts_i, c in zip(gt_ts, gt):
+                f.write(f"{ts_i:.6f} {c[0]:.9f} {c[1]:.9f} {c[2]:.9f} 0 0 0 1\n")
+        slam.save_trajectory_tum(est_path)
+        ts, _, t_wc, _ = slam.export_trajectory()
+        for with_scale in (False, True):
+            rmse, s = evaluate_ate.main([gt_path, est_path] + (["--scale"] if with_scale
+                                                                else []))
+            want, n_assoc = evaluate_trajectory(gt_ts, gt, ts, t_wc, with_scale=with_scale)
+            key = "ate_scaled" if with_scale else "ate_metric"
+            out[key] = dict(tool=rmse, scale=s, evaluate_trajectory=want, pairs=n_assoc)
+            if not abs(rmse - want) <= TOOLS_ATE_TOL * max(1.0, want):
+                raise AssertionError(f"tools: evaluate_ate_torch gave {rmse}, "
+                                     f"evaluate_trajectory {want}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
@@ -2874,8 +2958,11 @@ def main():
         r_reloc = phase_reloc(slam, scene, imgs)
     with timed("facade"):
         r_facade = phase_facade(slam, scene, poses, imgs)
-        slam.shutdown(print_times=False)
     print(f"facade phase: {seconds['facade']:.1f} s: {json.dumps(r_facade)}")
+    with timed("tools"):
+        r_tools = phase_tools(slam, poses)
+        slam.shutdown(print_times=False)
+    print(f"tools phase: {seconds['tools']:.1f} s: {json.dumps(r_tools)}")
     with timed("merge"):
         r_merge = phase_merge(scene, imgs)
     with timed("loop"):

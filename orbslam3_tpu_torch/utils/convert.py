@@ -87,22 +87,29 @@ INERTIAL_KEYS = ("imu_enabled", "imu_freq", "imu_noise", "imu_initialized", "imu
                  "imu_bias_a", "velocity_w", "pose_prior_H", "pose_prior_dT", "world_epoch")
 
 
-def preint_state_from(src, device="cpu") -> PreintState:
+def preint_state_from(src, device=None) -> PreintState:
     """The port's ``PreintState`` from a reference one (or any object or
-    mapping with its twelve fields as arrays), float32 on ``device``."""
+    mapping with its twelve fields as arrays), float32 on ``device``
+    (``resolve_device``: ``None`` is the card and raises without one)."""
     import torch
+    from .. import resolve_device
+    device = resolve_device(device)
     get = src.get if isinstance(src, dict) else (lambda k: getattr(src, k))
     return PreintState(**{k: torch.as_tensor(np.array(get(k), np.float32, copy=True),
                                              device=device)
                           for k in PreintState._fields})
 
 
-def tracker_inertial_state_from(src, dst, device="cpu"):
+def tracker_inertial_state_from(src, dst, device=None):
     """Carry a reference ``Tracker``'s inertial state into the port's ``dst``:
     the IMU settings and staging flags, the biases, the world velocity, the
     carried marginal prior, the keyframe preintegrations (``kf_preints``),
     the running blocks (``preint_since_kf``, ``frame_preint``) and the IMU
-    queue, as copies. Returns ``dst``."""
+    queue, as copies, the tensors on ``device`` (``None``: ``dst``'s device,
+    or the card through ``resolve_device`` when ``dst`` has none). Returns
+    ``dst``."""
+    from .. import resolve_device
+    device = resolve_device(getattr(dst, "device", None) if device is None else device)
     for k in INERTIAL_KEYS:
         v = getattr(src, k, None)
         setattr(dst, k, np.array(v, np.float32, copy=True) if isinstance(v, np.ndarray) else v)

@@ -1,14 +1,15 @@
 """The port runs where JAX is absent: importing every module of
 orbslam3_tpu_torch (the loop closer, vocabulary, Sim3 and pose-graph modules
 among them, the settings loader, the PNG reader, the viewer and the frame
-step of ``entry``) and the example drivers ``examples/run_*_torch.py``,
-extracting one frame and building a loop closer on the packaged vocabulary
-must never import ``jax``, the JAX package ``orbslam3_tpu``, ``cv2``,
-``matplotlib``, ``yaml`` or ``PIL`` (the machine with the GPU has none of
-them), and no file of the port, of its drivers or of chip_smoke.py
-reads a file of that package: what the port shares with it
-(``csrc/mapops.cpp``, ``data/vocab_synth.npz``) is a copy, held byte-equal
-here."""
+step of ``entry``), the example drivers ``examples/run_*_torch.py`` and the
+tools ``scripts/train_vocab_torch.py`` and ``scripts/evaluate_ate_torch.py``,
+extracting one frame, building a loop closer on the packaged vocabulary and
+running both tools at a tiny size must never import ``jax``, the JAX package
+``orbslam3_tpu``, ``cv2``, ``matplotlib``, ``yaml`` or ``PIL`` (the machine
+with the GPU has none of them), and no file of the port, of its drivers, of
+those tools or of chip_smoke.py reads a file of that package: what the port
+shares with it (``csrc/mapops.cpp``, ``data/vocab_synth.npz``) is a copy,
+held byte-equal here."""
 import ast
 import os
 import re
@@ -18,7 +19,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
-import glob, importlib, importlib.abc, os, pkgutil, sys
+import glob, importlib, importlib.abc, importlib.util, os, pkgutil, sys, tempfile
 import numpy as np
 
 # the machine with the card has no JAX, no OpenCV, no matplotlib, no PyYAML
@@ -64,6 +65,19 @@ lc = loop_closing.LoopCloser(MapState(MapConfig(n_features=256)),
                              np.array([458.0, 457.0, 376.0, 240.0], np.float32),
                              (752, 480), device="cpu")
 assert lc.vocab.n_words == 10000, lc.vocab.n_words
+# the two user tools, run at a tiny size on the CPU
+tools = {}
+for tool in ("train_vocab_torch", "evaluate_ate_torch"):
+    spec = importlib.util.spec_from_file_location(tool, os.path.join("scripts", tool + ".py"))
+    tools[tool] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tools[tool])
+with tempfile.TemporaryDirectory() as tmp:
+    vocab, _, _ = tools["train_vocab_torch"].main([os.path.join(tmp, "v.npz"), "--levels", "1",
+                                                   "--scenes", "1", "--images", "1",
+                                                   "--device", "cpu"])
+    assert vocab.n_words == 10 and os.path.exists(os.path.join(tmp, "v.npz"))
+rmse, s = tools["evaluate_ate_torch"].main(["trajectory_tum.txt", "trajectory_tum.txt"])
+assert rmse < 1e-9 and s == 1.0
 assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 print("OK", len(names))
 """
@@ -80,21 +94,21 @@ def test_port_never_imports_jax():
 
 def test_no_import_line_names_jax():
     pat = re.compile(r"^\s*(import|from) (jax|orbslam3_tpu)\b")
-    bad = []
-    for root, _, files in os.walk(os.path.join(REPO, "orbslam3_tpu_torch")):
-        for fn in files:
-            if fn.endswith(".py"):
-                path = os.path.join(root, fn)
-                with open(path) as fh:
-                    bad += [f"{path}:{i}" for i, line in enumerate(fh, 1) if pat.match(line)]
+    bad, paths = [], list(_port_sources())
+    for path in paths:
+        with open(path) as fh:
+            bad += [f"{path}:{i}" for i, line in enumerate(fh, 1) if pat.match(line)]
+    assert os.path.join(REPO, "scripts", "train_vocab_torch.py") in paths
+    assert os.path.join(REPO, "scripts", "evaluate_ate_torch.py") in paths
     assert not bad, bad
 
 
 def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
-    for fn in sorted(os.listdir(os.path.join(REPO, "examples"))):
-        if fn.endswith("_torch.py"):
-            yield os.path.join(REPO, "examples", fn)
+    for sub in ("examples", "scripts"):
+        for fn in sorted(os.listdir(os.path.join(REPO, sub))):
+            if fn.endswith("_torch.py"):
+                yield os.path.join(REPO, sub, fn)
     for root, _, files in os.walk(os.path.join(REPO, "orbslam3_tpu_torch")):
         for fn in files:
             if fn.endswith(".py"):

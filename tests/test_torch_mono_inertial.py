@@ -82,7 +82,7 @@ def _mono_trackers(n_kf: int, split: float = 1.0):
             tr = TTracker(K_CAM, None, WH, tfeat.OrbConfig(n_features=128),
                           map_state_from_arrays(vars(m), cfg), device="cpu")
             Frame = TFrame
-            kf_pre = {k: preint_state_from(preints[k - 1]) for k in range(1, n_kf)}
+            kf_pre = {k: preint_state_from(preints[k - 1], device="cpu") for k in range(1, n_kf)}
         tr.enable_imu(freq=200.0)
         tr.kf_preints = kf_pre
         tr.trajectory = [(a, b, c.copy(), d.copy(), e) for a, b, c, d, e in traj]

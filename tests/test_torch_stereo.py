@@ -107,6 +107,47 @@ def test_subpixel_refine(all_matched):
     assert ok_w.sum() > 100
 
 
+def test_jitted_stereo_reference_is_bit_identical():
+    """The JAX package's stereo matcher and subpixel refinement, which the
+    port's module fixture runs jitted from host calls
+    (``torch_port_helpers.jax_host_calls``), give bit for bit what their
+    eager calls give: on this file's seeded features and both median cases,
+    and on the JAX features of the first frame pairs of
+    tests/test_e2e_stereo.py's stereo fixture (the frames the end-to-end
+    stereo tests track)."""
+    import jax
+    from orbslam3_tpu.ops import features as jf
+    from torch_port_helpers import DEPTH_RIG_BASELINE, depth_rig_inputs
+    assert js.stereo_match.__wrapped__ is not js.stereo_match
+
+    def same(call_a, call_b):
+        a, b = call_a(), call_b()
+        for x, y in zip(jax.tree_util.tree_leaves(a), jax.tree_util.tree_leaves(b)):
+            assert np.array_equal(N(x), N(y))
+    gates = (J(SF), J(np.float32(BF)), J(np.float32(0.1)))
+    for seed in (0, 1, 2):
+        args = [J(a) for a in _stereo_features(np.random.default_rng(seed))] + list(gates)
+        same(lambda: js.stereo_match.__wrapped__(*args), lambda: js.stereo_match(*args))
+    scene, img_l, img_r, depth = _rendered_pair()
+    rng = np.random.default_rng(3)
+    xy = rng.uniform([20, 20], [scene.w - 20, scene.h - 20], (400, 2)).astype(np.float32)
+    ur = (xy[:, 0] - rng.uniform(1, 40, 400)).astype(np.float32)
+    for ok in (np.ones(400, bool), rng.random(400) < 0.8):
+        args = (J(img_l), J(img_r), J(xy), J(ur), J(ok))
+        same(lambda: js.subpixel_refine.__wrapped__(*args), lambda: js.subpixel_refine(*args))
+    scene, _, frames = depth_rig_inputs("stereo")
+    extract = jf.make_extractor(scene.h, scene.w, jf.OrbConfig(n_features=512))
+    for left, right in frames[:3]:
+        L, R = J(np.float32(left)), J(np.float32(right))
+        fl, fr = extract(L), extract(R)
+        args = (fl.xy, fl.desc, fl.octave, fl.valid, fr.xy, fr.desc, fr.octave, fr.valid,
+                J(SF), J(np.float32(DEPTH_RIG_BASELINE * scene.fx)), J(np.float32(0.1)))
+        same(lambda: js.stereo_match.__wrapped__(*args), lambda: js.stereo_match(*args))
+        ur_, _, ok_ = js.stereo_match(*args)
+        same(lambda: js.subpixel_refine.__wrapped__(L, R, fl.xy, ur_, ok_),
+             lambda: js.subpixel_refine(L, R, fl.xy, ur_, ok_))
+
+
 def test_median_as_jax():
     """The median helper reproduces jnp.median: NaN in → NaN, odd and even
     counts (the even one is the mean of the two middle values)."""

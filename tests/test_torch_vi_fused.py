@@ -151,7 +151,7 @@ def test_fused_track_vi_pooled_matches_jax(state, clear_jax_after):
         st = _vi_state(frames[2], vel[2], prior)
         want = np.asarray(jfn(J(st), J(ids), mpf_j, mpu_j, *_feats(f, False, ur), pre[2], cl=cl))
         got = N(tfn(T(st), T(ids), mpf_t, mpu_t, *_feats(f, True, ur),
-                    preint_state_from(pre[2]), cl=cl))
+                    preint_state_from(pre[2], device="cpu"), cl=cl))
         assert got.dtype == np.int32 and got.shape == want.shape == (tail + 234,)
         np.testing.assert_allclose(got[:12].view(np.float32), want[:12].view(np.float32),
                                    rtol=0, atol=1e-4, err_msg=case)
@@ -210,7 +210,7 @@ def _trackers(state):
     jt.velocity_w = vel[2].copy()
     jt.frame_preint = pre[2]
     jt.kf_preints = {k: pre[k - 1] for k in range(1, mref.n_kf)}
-    tracker_inertial_state_from(jt, tt)
+    tracker_inertial_state_from(jt, tt, device="cpu")
     for tr, pkg, S in ((jt, "jax", JS), (tt, "torch", TS)):
         f2 = frames[2]
         tr.last_frame = _frame_pair(pkg, f2, 2, 2 * DT, feat_mp=mref.kf_feat_mp[2],
@@ -329,7 +329,7 @@ def test_inertial_stage_matches_jax(state, case):
         else:
             m = map_state_from_arrays(arrays, mref.cfg)
             mapper = TLM(m, K4, TOrb(n_features=512), wh=(752, 480), device="cpu")
-            preints = {k: preint_state_from(pre[k - 1]) for k in range(1, mref.n_kf)}
+            preints = {k: preint_state_from(pre[k - 1], device="cpu") for k in range(1, mref.n_kf)}
         resets = []
         mapper.bf = bf
         mapper.inertial = types.SimpleNamespace(
@@ -401,7 +401,7 @@ def test_map_remap_timestamp_guard_and_chain_cull_match_jax(state):
         else:
             m = map_state_from_arrays(vars(mref), mref.cfg)
             mapper = TLM(m, K4, TOrb(n_features=512), wh=(752, 480), device="cpu")
-            preints = {k: preint_state_from(pre[k - 1]) for k in range(1, mref.n_kf)}
+            preints = {k: preint_state_from(pre[k - 1], device="cpu") for k in range(1, mref.n_kf)}
         tr = types.SimpleNamespace(viba2_done=False, kf_preints=preints,
                                    reanchor_trajectory=lambda k: None)
         mapper.inertial = tr
@@ -444,7 +444,7 @@ def test_fused_track_vi_pooled_monocular_matches_jax(state, clear_jax_after):
         want = np.asarray(jfn(J(st), J(ids), mpf_j, mpu_j, *_feats(f, False, no_ur), pre[2],
                               cl=cl))
         got = N(tfn(T(st), T(ids), mpf_t, mpu_t, *_feats(f, True, no_ur),
-                    preint_state_from(pre[2]), cl=cl))
+                    preint_state_from(pre[2], device="cpu"), cl=cl))
         assert got.dtype == np.int32 and got.shape == want.shape == (tail + 234,)
         np.testing.assert_allclose(got[:12].view(np.float32), want[:12].view(np.float32),
                                    rtol=0, atol=1e-4, err_msg=case)

@@ -9,6 +9,10 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import os
+import pathlib
+import pickle
+import time
 
 import jax
 import jax.numpy as jnp
@@ -22,14 +26,25 @@ N_FEATURES = 512
 
 
 @contextlib.contextmanager
-def jitted(module, name: str, **jit_kw):
+def jitted(module, name: str, host_only: bool = False, **jit_kw):
     """``module.name`` replaced by ``jax.jit`` of itself for the duration
     (the JAX package's files are untouched). For functions that the JAX
     package calls eagerly from host code with stable shapes: the eager call
     traces and compiles on every call, the jitted one once per shape
-    (``jax_host_calls`` says what each gives)."""
+    (``jax_host_calls`` says what each gives). With ``host_only`` a call
+    from inside another traced function still runs the original, so the
+    programs that inline it stay as they are."""
     orig = getattr(module, name)
-    setattr(module, name, jax.jit(orig, **jit_kw))
+    fast = jax.jit(orig, **jit_kw)
+    if host_only:
+        @functools.wraps(orig)
+        def fast_on_host(*args, **kw):
+            traced = any(isinstance(x, jax.core.Tracer)
+                         for x in jax.tree_util.tree_leaves((args, kw)))
+            return (orig if traced else fast)(*args, **kw)
+        setattr(module, name, fast_on_host)
+    else:
+        setattr(module, name, fast)
     try:
         yield
     finally:
@@ -72,10 +87,21 @@ def jax_host_calls():
     (``test_torch_imu.py::test_jitted_reference_is_bit_identical``), and the
     inertial-only initialization once per IMU init attempt (14 s a solve
     eager, 6 s jitted; within 1e-6 of its eager result, the jitted form
-    ``test_torch_imu.py`` holds the port against). Also one extractor per
-    configuration (``shared_jax_extractors``)."""
-    from orbslam3_tpu.ops import imu, imu_init, pnp
+    ``test_torch_imu.py`` holds the port against), and the synchronous
+    stereo front end's matcher and subpixel refinement once per frame pair
+    (0.4-0.5 s and about 0.1 s a call eager on the CPU; bit-identical
+    jitted on the stereo fixture's frames,
+    ``test_torch_stereo.py::test_jitted_stereo_reference_is_bit_identical``;
+    jitted from host calls only: the pipelined front end traces them into
+    its own program). Also one extractor per configuration
+    (``shared_jax_extractors``). The fisheye rig's stereo matcher and the KB8
+    unprojection are not jitted: their jitted results differ from the eager
+    ones in the last bits."""
+    from orbslam3_tpu.ops import imu, imu_init, pnp, stereo
     stack = contextlib.ExitStack()
+    stack.enter_context(jitted(stereo, "stereo_match", host_only=True))
+    stack.enter_context(jitted(stereo, "subpixel_refine", host_only=True,
+                               static_argnames=("w", "search")))
     stack.enter_context(jitted(imu, "preintegrate", static_argnums=(6, 7, 8, 9, 10)))
     stack.enter_context(jitted(pnp, "pnp_ransac",
                                static_argnames=("chi2_th", "focal", "min_inliers")))
@@ -86,16 +112,124 @@ def jax_host_calls():
     return stack
 
 
-@pytest.fixture(autouse=True, scope="module")
-def torch_threads():
-    """Two intra-op threads per worker: tier-1 runs six workers on eight
-    cores. For the module's duration the JAX package's eager host calls run
-    jitted (``jax_host_calls``)."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    with jax_host_calls():
+_RUN_DIR = None        # the run's shared directory while a port module runs
+
+
+def run_dir(tmp_path_factory) -> pathlib.Path:
+    """A directory that every pytest-xdist worker of this pytest run shares
+    and that no other run sees: the run's base temporary directory (a
+    worker's own base is a directory inside it)."""
+    base = tmp_path_factory.getbasetemp()
+    return base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+
+
+_CACHE_OPTIONS = {"jax_persistent_cache_min_compile_time_secs": 0.0,
+                  "jax_persistent_cache_min_entry_size_bytes": 0}
+
+
+@contextlib.contextmanager
+def jax_compilation_cache(directory):
+    """JAX's persistent compilation cache in ``directory`` for the duration:
+    every program, however quick to compile, is written there and read back
+    by the next process or module that compiles the same program on the same
+    shapes, instead of compiled again. On exit the options are put back and
+    the cache is off again (``reset_cache``).
+
+    The JAX package keeps its own CPU cache off, for a risk of SIGILL when
+    an executable compiled on one host with its CPU's features loads on
+    another (``orbslam3_tpu/models/system.py``). This directory lives under
+    one pytest run's base temporary directory: it starts empty in every run
+    and only processes of that run, on that host, read it.
+
+    The cache has no size limit, so JAX takes no file lock and scans no
+    directory per entry (with a limit, every write lists the directory:
+    thousands of entries in a run). Workers then write entries without a
+    lock; a worker that reads an entry another is still writing gets a
+    truncated stream, which JAX reports as a warning and compiles instead."""
+    from jax.experimental.compilation_cache import compilation_cache as cc
+    options = dict(_CACHE_OPTIONS, jax_compilation_cache_dir=str(directory))
+    prev = {name: getattr(jax.config, name) for name in options}
+    os.makedirs(directory, exist_ok=True)
+    for name, value in options.items():
+        jax.config.update(name, value)
+    cc.reset_cache()
+    try:
         yield
-    torch.set_num_threads(prev)
+    finally:
+        for name, value in prev.items():
+            jax.config.update(name, value)
+        cc.reset_cache()
+
+
+SHARED_WAIT_S = 600.0   # how long a worker waits for another's shared result
+
+
+def shared_result(key: str, compute, wait_s: float = SHARED_WAIT_S):
+    """``compute()``, computed once per pytest run and handed to every
+    worker that asks for ``key`` while a port module runs (``port_module``):
+    the first worker to ask takes ``key``'s lock file, computes, and writes
+    the pickled result atomically (a temporary file, then ``os.replace``);
+    another worker that finds the lock taken waits for the result, and after
+    ``wait_s`` seconds (or when the first gave up: the lock is gone) computes
+    it itself. The files live in the run's directory (``run_dir``), so every
+    run computes its references afresh. Outside a port module it just
+    computes. The result must pickle: numpy arrays, no live system."""
+    if _RUN_DIR is None:
+        return compute()
+    d = _RUN_DIR / "shared"
+    d.mkdir(exist_ok=True)
+    path, lock = d / f"{key}.pkl", d / f"{key}.lock"
+    deadline = time.monotonic() + wait_s
+    while True:
+        if path.exists():
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        try:
+            os.close(os.open(lock, os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+            break                                   # ours to compute
+        except FileExistsError:
+            if time.monotonic() > deadline:
+                return compute()
+            time.sleep(0.2)
+    try:
+        value = compute()
+        tmp = d / f"{key}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(value, f, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, path)
+    except BaseException:
+        lock.unlink()
+        raise
+    return value
+
+
+@contextlib.contextmanager
+def port_module(tmp_path_factory):
+    """What a port test module runs inside (``torch_threads``): two torch
+    intra-op threads (tier-1 runs six workers on eight cores), the JAX
+    package's eager host calls jitted (``jax_host_calls``), its programs
+    through the run's persistent compilation cache (``jax_compilation_cache``:
+    each port module builds its JAX references with programs that an earlier
+    module of the run, on any worker, may already have compiled), and the
+    run's directory for ``shared_result``. Everything is put back on exit."""
+    global _RUN_DIR
+    prev_threads, prev_dir = torch.get_num_threads(), _RUN_DIR
+    torch.set_num_threads(2)
+    _RUN_DIR = run_dir(tmp_path_factory)
+    try:
+        with jax_compilation_cache(_RUN_DIR / "jax_cache"), jax_host_calls():
+            yield
+    finally:
+        _RUN_DIR = prev_dir
+        torch.set_num_threads(prev_threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_threads(tmp_path_factory):
+    """The port test module's setting (``port_module``), autouse: a module
+    that imports this fixture runs inside it."""
+    with port_module(tmp_path_factory):
+        yield
 
 
 def T(a, dtype=None) -> torch.Tensor:
@@ -153,7 +287,17 @@ def random_pose(rng, rot_scale=0.2, t_scale=0.3):
 def room_frames(n_frames: int = 8, n_features: int = N_FEATURES):
     """Rendered RoomScene(seed=1) orbit frames with depth, their JAX ORB
     features (numpy) and poses: the shared real-image input of the kernel
-    parity tests."""
+    parity tests. The frames are computed once per run (``shared_result``:
+    the renders and the JAX package's extraction, ``room_frames_fresh``);
+    the scene is built here. Returns (scene, frames)."""
+    from orbslam3_tpu.utils.datasets import RoomScene
+    frames = shared_result(f"room_frames-{n_frames}-{n_features}",
+                           lambda: room_frames_fresh(n_frames, n_features))
+    return RoomScene(seed=1), frames
+
+
+def room_frames_fresh(n_frames: int, n_features: int) -> list:
+    """``room_frames``' frames, computed in this process."""
     from orbslam3_tpu.ops import features as jf
     from orbslam3_tpu.utils.datasets import RoomScene, orbit_trajectory
     scene = RoomScene(seed=1)
@@ -166,7 +310,7 @@ def room_frames(n_frames: int = 8, n_features: int = N_FEATURES):
         frames.append(dict(img=img, depth=depth, R=R.astype(np.float32),
                            t=t.astype(np.float32),
                            **{k: np.asarray(getattr(f, k)) for k in f._fields}))
-    return scene, frames
+    return frames
 
 
 def build_reference_map(frames, n_kf: int = 2, stride: int = 1):
@@ -312,24 +456,38 @@ DEPTH_RIG_FRAMES = 14   # tests/test_e2e_stereo.py's orbits
 DEPTH_RIG_BASELINE = 0.11
 
 
+def _depth_rig_scene(kind: str):
+    from orbslam3_tpu.utils.datasets import RoomScene
+    return RoomScene(seed=2 if kind == "stereo" else 3, depth=6.0, half_w=4.0, half_h=2.5)
+
+
 @functools.lru_cache(maxsize=None)
 def depth_rig_inputs(kind: str, n_frames: int = DEPTH_RIG_FRAMES):
     """tests/test_e2e_stereo.py's fixtures: RoomScene(seed=2) with the right
     eye from scene.stereo_pose (``stereo``) or RoomScene(seed=3) with the
     renderer's depth (``rgbd``), along orbit_trajectory(n_frames, radius=0.6,
-    forward=0.03) (14 frames in that file). Returns (scene, ground-truth
-    centres, frames)."""
-    from orbslam3_tpu.utils.datasets import RoomScene, orbit_trajectory
-    scene = RoomScene(seed=2 if kind == "stereo" else 3, depth=6.0, half_w=4.0, half_h=2.5)
+    forward=0.03) (14 frames in that file). The frames are rendered once per
+    run (``shared_result``, ``depth_rig_frames_fresh``). Returns (scene,
+    ground-truth centres, frames)."""
+    from orbslam3_tpu.utils.datasets import orbit_trajectory
+    poses = orbit_trajectory(n_frames, radius=0.6, forward=0.03)
+    frames = shared_result(f"depth_rig-{kind}-{n_frames}",
+                           lambda: depth_rig_frames_fresh(kind, n_frames))
+    return _depth_rig_scene(kind), np.array([-R.T @ t for R, t in poses]), frames
+
+
+def depth_rig_frames_fresh(kind: str, n_frames: int) -> list:
+    """``depth_rig_inputs``' frames, rendered in this process: (left, right)
+    image pairs for ``stereo``, (image, depth) pairs for ``rgbd``."""
+    from orbslam3_tpu.utils.datasets import orbit_trajectory
+    scene = _depth_rig_scene(kind)
     poses = orbit_trajectory(n_frames, radius=0.6, forward=0.03)
     if kind == "stereo":
         views = [(R, t) for R, t in poses]
         views += [scene.stereo_pose(R, t, DEPTH_RIG_BASELINE) for R, t in poses]
         imgs = render_all(scene, views)
-        frames = list(zip(imgs[:len(poses)], imgs[len(poses):]))
-    else:
-        frames = render_all(scene, [(R, t, True) for R, t in poses])
-    return scene, np.array([-R.T @ t for R, t in poses]), frames
+        return list(zip(imgs[:len(poses)], imgs[len(poses):]))
+    return render_all(scene, [(R, t, True) for R, t in poses])
 
 
 def depth_rig_runs(kind: str, th_depth_baselines: float = 40.0, **params) -> dict:
@@ -649,7 +807,8 @@ def _restore(system, snap: dict):
     tr.velocity = snap["velocity"]
     tr.state = TrackState[snap["state"]]
     tracker_inertial_state_from(SimpleNamespace(**snap["inertial"], kf_preints=snap["kf_preints"],
-                                                imu_queue=snap["imu_queue"]), tr)
+                                                imu_queue=snap["imu_queue"]), tr,
+                                device="cpu")
 
 
 def mono_inertial_handoff(snap: dict, scene, frames, jax_extract, n_frames: int,
