@@ -9,10 +9,11 @@ Two entry points, one CUDA source (``csrc/match_rows.cu``):
   single-radius calls return (the tracker's motion-model retry).
 
 Each launches its kernel for CUDA tensors and runs its plain PyTorch version
-(:func:`match_rows_reference`, :func:`match_rows_dual_reference`) for CPU
-tensors. A CUDA tensor never takes the plain path: the kernel runs or the
-call raises. Each wrapper counts its launches in ``<wrapper>.launches``
-(bumped under a lock: tracker and mapper threads both match).
+(:func:`match_rows_reference`, :func:`match_rows_dual_reference`: the pairs
+inside each row's window, not the full matrix) for CPU tensors. A CUDA
+tensor never takes the plain path: the kernel runs or the call raises. Each
+wrapper counts its launches in ``<wrapper>.launches`` (bumped under a lock:
+tracker and mapper threads both match).
 
 The kernels build at first use from the repository's source with ``nvcc``
 into ``orbslam3_tpu_torch/build/`` and are bound through ``ctypes``.
@@ -20,6 +21,7 @@ into ``orbslam3_tpu_torch/build/`` and are bound through ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 import subprocess
 import tempfile
@@ -28,7 +30,7 @@ import time
 
 import torch
 
-from .matching import BIG, hamming_matrix
+from .matching import BIG
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "match_rows.cu")
@@ -101,34 +103,94 @@ def _load():
     return _lib
 
 
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word (as its 32-bit pattern), int64."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _window_pairs(uv, reach, lvl, row_ok, feat_xy, feat_oct, feat_ok, octave_lo, octave_hi):
+    """The (row, column) pairs of valid rows and columns whose octave lies
+    in range and whose offsets lie within ``reach``: rows flat over the
+    batch, columns within their batch entry."""
+    M, N = row_ok.shape[-1], feat_ok.shape[-1]
+    B = row_ok.numel() // M
+    uv, reach, lvl, row_ok = (uv.reshape(B, M, 2), reach.reshape(B, M), lvl.reshape(B, M),
+                              row_ok.reshape(B, M))
+    feat_xy, feat_oct, feat_ok = (feat_xy.reshape(B, N, 2), feat_oct.reshape(B, N),
+                                  feat_ok.reshape(B, N))
+    parts = []
+    for e in range(B):
+        rows = torch.nonzero(row_ok[e]).squeeze(1)
+        du = torch.abs(uv[e, rows, None, 0] - feat_xy[e, None, :, 0])     # (R,N)
+        i, col = torch.nonzero(du <= reach[e, rows, None], as_tuple=True)
+        row = rows[i]
+        dv = torch.abs(uv[e, row, 1] - feat_xy[e, col, 1])
+        doct = feat_oct[e, col] - lvl[e, row]
+        keep = ((dv <= reach[e, row]) & (doct >= -octave_lo) & (doct <= octave_hi)
+                & feat_ok[e, col])
+        parts.append((row[keep] + e * M, col[keep]))
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def _pair_distances(mp_desc, feat_desc, row, col):
+    """Hamming distance of each (row, column) pair, int64."""
+    N = feat_desc.shape[-2]
+    a = mp_desc.reshape(-1, 8)[row]
+    f = feat_desc.reshape(-1, 8)[(row // mp_desc.shape[-2]) * N + col]
+    return _popcount32(a ^ f).sum(-1)
+
+
+def _top2(shape, N, row, col, dist, device):
+    """Per row the lowest distance, its column (the lowest among equal
+    distances) and the lowest distance over the row's other columns; BIG
+    (and column 0) where a row has no pair."""
+    n_rows = math.prod(shape)
+    key = torch.full((n_rows,), BIG * N, dtype=torch.int64, device=device).scatter_reduce(
+        0, row, dist * N + col, "amin", include_self=True)
+    best, idx = key // N, key % N
+    other = torch.where(col == idx[row], BIG, dist)
+    second = torch.full((n_rows,), BIG, dtype=torch.int64, device=device).scatter_reduce(
+        0, row, other, "amin", include_self=True)
+    return tuple(x.to(torch.int32).reshape(shape) for x in (idx, best, second))
+
+
 def match_rows_reference(mp_desc, uv, rad, lvl, row_ok, feat_desc, feat_xy,
                          feat_oct, feat_ok, octave_lo: int = 1, octave_hi: int = 1):
-    """Plain PyTorch version: Hamming matrix, masks, ``argmin`` (lowest column
-    among ties) and the second best over the other columns. Accepts an
-    optional leading batch dimension on every argument."""
-    dist = hamming_matrix(mp_desc, feat_desc)                     # (…,M,N)
-    du = torch.abs(uv[..., :, None, 0] - feat_xy[..., None, :, 0])
-    dv = torch.abs(uv[..., :, None, 1] - feat_xy[..., None, :, 1])
-    r = rad[..., :, None]
-    doct = feat_oct[..., None, :] - lvl[..., :, None]
-    mask = ((du <= r) & (dv <= r) & (doct >= -octave_lo) & (doct <= octave_hi)
-            & row_ok[..., :, None] & feat_ok[..., None, :])
-    d = torch.where(mask, dist, BIG)
-    idx = torch.argmin(d, dim=-1)
-    best = torch.gather(d, -1, idx[..., None])[..., 0]
-    col = torch.arange(d.shape[-1], device=d.device)
-    second = torch.amin(torch.where(col == idx[..., None], BIG, d), dim=-1)
-    return idx.to(torch.int32), best.to(torch.int32), second.to(torch.int32)
+    """Plain PyTorch version: the pairs inside the mask (window, octave
+    range, valid row and column), their Hamming distances, and per row the
+    best (lowest column among ties) and the second best over the other
+    columns; rows without a pair get column 0 and BIG twice. Integers
+    throughout: bit for bit the masked all-pairs matrix's ``argmin`` and
+    minima. Accepts an optional leading batch dimension on every argument."""
+    row, col = _window_pairs(uv, rad, lvl, row_ok, feat_xy, feat_oct, feat_ok,
+                             octave_lo, octave_hi)
+    dist = _pair_distances(mp_desc, feat_desc, row, col)
+    return _top2(row_ok.shape, feat_ok.shape[-1], row, col, dist, row_ok.device)
 
 
 def match_rows_dual_reference(mp_desc, uv, rad, lvl, row_ok, feat_desc, feat_xy,
                               feat_oct, feat_ok, octave_lo: int = 1, octave_hi: int = 1,
                               wide: float = 2.0):
-    """Plain PyTorch version of the dual form: two plain calls, at ``rad``
-    and at ``wide * rad`` (one float32 product, as the kernel forms it)."""
-    args = (feat_desc, feat_xy, feat_oct, feat_ok, octave_lo, octave_hi)
-    return (match_rows_reference(mp_desc, uv, rad, lvl, row_ok, *args),
-            match_rows_reference(mp_desc, uv, wide * rad, lvl, row_ok, *args))
+    """Plain PyTorch version of the dual form: :func:`match_rows_reference`
+    at ``rad`` and at ``wide * rad`` (one float32 product, as the kernel
+    forms it), over one set of pairs and distances (those within either
+    radius)."""
+    rad_w = wide * rad
+    row, col = _window_pairs(uv, torch.maximum(rad, rad_w), lvl, row_ok, feat_xy,
+                             feat_oct, feat_ok, octave_lo, octave_hi)
+    dist = _pair_distances(mp_desc, feat_desc, row, col)
+    M, N = row_ok.shape[-1], feat_ok.shape[-1]
+    off = torch.abs(uv.reshape(-1, 2)[row] - feat_xy.reshape(-1, 2)[(row // M) * N + col])
+    out = []
+    for r in (rad, rad_w):
+        r = r.reshape(-1)[row]
+        sel = (off[:, 0] <= r) & (off[:, 1] <= r)
+        out.append(_top2(row_ok.shape, N, row[sel], col[sel], dist[sel], row_ok.device))
+    return tuple(out)
 
 
 # (name, dtype, trailing shape, pointer alignment the kernel needs)

@@ -26,8 +26,10 @@ import xml.etree.ElementTree as ET
 def load(path: str) -> "collections.OrderedDict[str, list]":
     files = collections.OrderedDict()
     for tc in ET.parse(path).iter("testcase"):
-        files.setdefault(tc.get("classname").rsplit(".", 1)[-1], []).append(
-            float(tc.get("time", 0.0)))
+        # classname: "tests.<module>" or "tests.<module>.<class>"
+        parts = tc.get("classname").split(".")
+        module = next((p for p in parts if p.startswith("test_")), parts[-1])
+        files.setdefault(module, []).append(float(tc.get("time", 0.0)))
     return files
 
 

@@ -107,3 +107,61 @@ def test_wrapper_counts_only_kernel_launches():
     mr.match_rows(*map(T, _inputs(3, 40, 30)))
     mr.match_rows_dual(*map(T, _inputs(3, 40, 30)))
     assert (mr.match_rows.launches, mr.match_rows_dual.launches) == before
+
+
+def _all_pairs(mp_desc, uv, rad, lvl, row_ok, feat_desc, feat_xy, feat_oct, feat_ok,
+               octave_lo=1, octave_hi=1):
+    """The function as the masked all-pairs Hamming matrix states it:
+    ``argmin`` (lowest column among ties), its distance, and the minimum
+    over the other columns."""
+    from orbslam3_tpu_torch.ops.matching import hamming_matrix
+    dist = hamming_matrix(mp_desc, feat_desc)
+    du = torch.abs(uv[..., :, None, 0] - feat_xy[..., None, :, 0])
+    dv = torch.abs(uv[..., :, None, 1] - feat_xy[..., None, :, 1])
+    r = rad[..., :, None]
+    doct = feat_oct[..., None, :] - lvl[..., :, None]
+    mask = ((du <= r) & (dv <= r) & (doct >= -octave_lo) & (doct <= octave_hi)
+            & row_ok[..., :, None] & feat_ok[..., None, :])
+    d = torch.where(mask, dist, mr.BIG)
+    idx = torch.argmin(d, dim=-1)
+    best = torch.gather(d, -1, idx[..., None])[..., 0]
+    col = torch.arange(d.shape[-1])
+    second = torch.amin(torch.where(col == idx[..., None], mr.BIG, d), dim=-1)
+    return idx.to(torch.int32), best.to(torch.int32), second.to(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["plain", "ties", "odd_values", "one_column", "batched"])
+def test_plain_equals_the_all_pairs_matrix(case):
+    """The plain versions visit only the pairs inside each row's window;
+    they must equal the masked all-pairs formulation bit for bit, the dual
+    form at both radii (also where ``wide * rad`` is the smaller radius),
+    with NaN offsets, negative and infinite radii, octave bounds of 0 and 2,
+    a single column and a batch dimension."""
+    seed, M, N = {"plain": (31, 200, 150), "ties": (32, 180, 120),
+                  "odd_values": (33, 160, 140), "one_column": (34, 50, 1),
+                  "batched": (35, 70, 60)}[case]
+    if case == "batched":
+        per = [_inputs(seed + b, M, N, ties=bool(b % 2)) for b in range(3)]
+        args = [T(np.stack([p[i] for p in per])) for i in range(9)]
+    else:
+        args = list(map(T, _inputs(seed, M, N, ties=case == "ties")))
+    if case == "odd_values":
+        args[1][::11] = float("nan")
+        args[2][1::13] = -3.0
+        args[2][2::17] = float("inf")
+        args[6][::19, 0] = float("nan")
+    if case == "one_column":
+        args[1][:20] = args[6][0]                   # rows on top of the one feature
+        args[3][:20] = args[7][0]
+        args[8][0] = True
+    for lo, hi in ((1, 1), (0, 2)):
+        want = _all_pairs(*args, octave_lo=lo, octave_hi=hi)
+        for g, w in zip(mr.match_rows(*args, octave_lo=lo, octave_hi=hi), want):
+            assert g.dtype == torch.int32 and torch.equal(g, w), case
+        for wide in (2.0, 0.5):
+            wide_args = args[:2] + [wide * args[2]] + args[3:]
+            got = mr.match_rows_dual(*args, octave_lo=lo, octave_hi=hi, wide=wide)
+            for triple, a in zip(got, (args, wide_args)):
+                for g, w in zip(triple, _all_pairs(*a, octave_lo=lo, octave_hi=hi)):
+                    assert torch.equal(g, w), (case, wide)
+    assert (want[1] < mr.BIG).any() and (want[1] >= mr.BIG).any()

@@ -100,10 +100,14 @@ def test_port_module_setting_is_undone(tmp_path_factory):
         jax.jit(lambda a, b: _program(a, b)[0] * 2.0)(x, y)
     assert jax.config.jax_compilation_cache_dir is None and h._RUN_DIR is None
     assert torch.get_num_threads() == threads
-    before = set(os.listdir(cache))
-    assert any(n.endswith("-cache") for n in before)
-    jax.jit(lambda a, b: _program(a, b)[1] * 3.0)(*_inputs())
-    assert set(os.listdir(cache)) == before
+    assert any(n.endswith("-cache") for n in os.listdir(cache))
+
+    def _compiled_after_teardown(a, b):
+        return _program(a, b)[1] * 3.0
+    jax.jit(_compiled_after_teardown)(*_inputs())
+    # other workers of the run write into the same directory meanwhile: look
+    # for this program's own entry
+    assert not [n for n in os.listdir(cache) if "compiled_after_teardown" in n]
 
 
 def test_shared_result_is_computed_once_and_waited_for(tmp_path_factory):
@@ -182,3 +186,49 @@ def test_shared_references_equal_fresh_ones(tmp_path_factory, name):
     assert len(computed) > 0
     _assert_same(shared, computed)
     _assert_same(from_file, computed)
+
+
+def _traces_of(name):
+    """A list that collects one entry per trace of a function called
+    ``name`` until the listener is removed (returned second)."""
+    from jax._src import monitoring
+    seen = []
+
+    def listen(event, duration, fun_name="", **_):
+        if event == "/jax/core/compile/jaxpr_trace_duration" and fun_name == name:
+            seen.append(duration)
+    jax.monitoring.register_event_duration_secs_listener(listen)
+    return seen, lambda: monitoring.unregister_event_duration_listener(listen)
+
+
+def test_shared_local_ba_is_one_program_and_bit_equal():
+    """Inside ``shared_jax_local_ba`` a second JAX mapper of the same camera
+    type runs its local BA with the first one's jitted callable (no new
+    trace), and both give, bit for bit, what a mapper outside it gives."""
+    from orbslam3_tpu.models import map as jmap
+    from orbslam3_tpu.models.local_mapping import LocalMapper
+    from orbslam3_tpu.ops.features import OrbConfig
+    m, _, _, n_kf = h.build_drifted_map(jmap)
+    K = np.array([458.654, 457.296, 376.0, 240.0], np.float32)
+    cfg = OrbConfig(n_features=m.cfg.n_features)
+
+    def run(mapper):
+        prob = mapper._gather_local_ba(n_kf // 2)[0]
+        return [np.asarray(x) for x in mapper._run_ba(prob, (5, 10))]
+    alone = run(LocalMapper(m, K, cfg))
+    plain = LocalMapper._run_ba
+    traces, stop = _traces_of("local_ba")
+    try:
+        with h.shared_jax_local_ba():
+            a, b = LocalMapper(m, K, cfg), LocalMapper(m, K, cfg)
+            first = run(a)
+            n_first = len(traces)
+            second = run(b)
+    finally:
+        stop()
+    assert n_first >= 1 and len(traces) == n_first, traces
+    assert b._ba_jit is a._ba_jit
+    assert LocalMapper._run_ba is plain                  # put back at the exit
+    _assert_same(first, alone)
+    _assert_same(second, alone)
+

@@ -16,7 +16,7 @@ starts, the port's winner), the pose within 1e-4.
 End to end, the tracker with ``TrackingParams(pose_starts=7)`` is held by
 tests/test_torch_system_api.py on a state handed over from the JAX package
 (the staged path every frame, poses within 1e-3), and the two-start tracker
-by tests/test_torch_e2e_mono.py."""
+by tests/test_torch_walks_mono.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np

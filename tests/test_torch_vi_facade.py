@@ -2,9 +2,10 @@
 ``enable_imu`` binds the mapper's inertial back references and
 ``_on_bad_imu`` resets the active map; monocular-inertial
 (``SlamSystem.track_monocular_inertial``, ``enable_imu`` on a monocular
-rig) preintegrates every frame; the inertial RGB-D and fisheye-rig front
-ends preintegrate and, on a seeded initialized IMU, track through the fused
-visual-inertial step (``torch_port_helpers.inertial_front_end_runs``); the
+rig) preintegrates every frame; the inertial RGB-D, stereo
+(``track_stereo_inertial``) and fisheye-rig front ends preintegrate and, on
+a seeded initialized IMU, track through the fused visual-inertial step
+(``torch_port_helpers.inertial_front_end_runs``); the
 inertial post-loop BA (FullInertialBA after a loop correction) runs inline
 and in the background global BA's thread; the viewer still raises
 NotImplementedError naming its ROADMAP item.
@@ -107,13 +108,13 @@ def test_kb8_monocular_inertial_matches_jax():
     assert states["torch"][-1] == states["jax"][-1] == "OK", states
     # the two-view bootstrap parts on pyramid rounding (the JAX package
     # initializes on frame 3, the port on frame 4): within 2 frames, as
-    # tests/test_torch_e2e_fisheye_mono.py holds the tracked frames
+    # tests/test_torch_walks_kb8.py::TestE2eFisheyeMono holds the tracked frames
     assert abs(states["torch"].index("OK") - states["jax"].index("OK")) <= 2, states
     for (pt, _), (pj, _) in zip(out["torch"], out["jax"]):
         _preint_close(pt, pj)
 
 
-@pytest.fixture(scope="module", params=["rgbd", "rig"])
+@pytest.fixture(scope="module", params=["rgbd", "rig", "stereo"])
 def front_end(request):
     import gc
     import jax
@@ -124,8 +125,9 @@ def front_end(request):
 
 
 def test_inertial_front_end_preintegrates_like_jax(front_end):
-    """The inertial RGB-D and fisheye-rig front ends preintegrate every frame
-    as the JAX package's do (both packages on their own features)."""
+    """The inertial RGB-D, stereo and fisheye-rig front ends preintegrate
+    every frame as the JAX package's do (both packages on their own
+    features)."""
     kind, r = front_end
     j, t = r["jax"], r["torch"]
     assert t["states"] == j["states"][: len(t["states"])], kind

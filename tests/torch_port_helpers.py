@@ -77,6 +77,35 @@ def shared_jax_extractors():
         features.make_extractor = orig
 
 
+@contextlib.contextmanager
+def shared_jax_local_ba():
+    """The JAX package's mapper jits its local BA per object
+    (``functools.partial(local_ba, cam_type=...)``: the camera type is its
+    only parameter); for the duration, mappers of one camera type share the
+    first one's jitted callable (the same program:
+    ``tests/test_torch_port_helpers.py`` holds it bit for bit), so a module
+    that builds several JAX systems traces and lowers each BA shape once,
+    not once per system."""
+    from orbslam3_tpu.models.local_mapping import LocalMapper
+    cache = {}
+    orig = LocalMapper._run_ba
+
+    @functools.wraps(orig)
+    def run_ba(self, prob, iters):
+        if self._ba_jit is None and self.cam_type in cache:
+            self._ba_jit = cache[self.cam_type]
+        out = orig(self, prob, iters)
+        if self._ba_jit is not None:
+            cache.setdefault(self.cam_type, self._ba_jit)
+        return out
+
+    LocalMapper._run_ba = run_ba
+    try:
+        yield
+    finally:
+        LocalMapper._run_ba = orig
+
+
 def jax_host_calls():
     """The JAX package's functions that its tracker and mapper call eagerly
     from host code, jitted (``jitted``): the IMU preintegration once per
@@ -91,12 +120,13 @@ def jax_host_calls():
     stereo front end's matcher and subpixel refinement once per frame pair
     (0.4-0.5 s and about 0.1 s a call eager on the CPU; bit-identical
     jitted on the stereo fixture's frames,
-    ``test_torch_stereo.py::test_jitted_stereo_reference_is_bit_identical``;
+    ``test_torch_walks_depth.py::TestStereo::test_jitted_stereo_reference_is_bit_identical``;
     jitted from host calls only: the pipelined front end traces them into
     its own program). Also one extractor per configuration
     (``shared_jax_extractors``). The fisheye rig's stereo matcher and the KB8
     unprojection are not jitted: their jitted results differ from the eager
-    ones in the last bits."""
+    ones in the last bits. And the mappers' local BA, jitted per object by
+    the JAX package, shared per camera type (``shared_jax_local_ba``)."""
     from orbslam3_tpu.ops import imu, imu_init, pnp, stereo
     stack = contextlib.ExitStack()
     stack.enter_context(jitted(stereo, "stereo_match", host_only=True))
@@ -109,6 +139,7 @@ def jax_host_calls():
     stack.enter_context(jitted(imu_init, "inertial_init",
                                static_argnames=("opt_scale", "iters", "prior_g", "prior_a")))
     stack.enter_context(shared_jax_extractors())
+    stack.enter_context(shared_jax_local_ba())
     return stack
 
 
@@ -359,7 +390,7 @@ def build_reference_map(frames, n_kf: int = 2, stride: int = 1):
 
 
 # ---------------------------------------------------------------------------
-# the KB8 fisheye camera end to end (test_torch_e2e_fisheye{,_mono}.py)
+# the KB8 fisheye camera end to end (test_torch_walks_kb8.py)
 # ---------------------------------------------------------------------------
 KB8 = np.asarray([190.978, 190.973, 256.0, 256.0,
                   0.00348, 0.000715, -0.00205, 0.000202], np.float32)
@@ -450,7 +481,7 @@ def check_fisheye_errors_and_rig(runs):
 
 
 # ---------------------------------------------------------------------------
-# stereo and RGB-D end to end (test_torch_e2e_stereo*.py, test_torch_e2e_kf_policy.py)
+# stereo and RGB-D end to end (test_torch_walks_depth.py)
 # ---------------------------------------------------------------------------
 DEPTH_RIG_FRAMES = 14   # tests/test_e2e_stereo.py's orbits
 DEPTH_RIG_BASELINE = 0.11
@@ -612,38 +643,67 @@ SI_SYNC_FRAMES = 36      # tests/test_e2e_stereo_inertial.py's run
 SI_PIPE_FRAMES = 11      # then pipelined, on the IMU-initialized map
 
 
+def _si_frames(scene, first: int, last: int) -> list:
+    """The stereo pairs of frames ``first`` to ``last - 1`` of the
+    stereo-inertial fixture."""
+    import test_e2e_stereo_inertial as fx
+    poses = [fx.pose_at(i) for i in range(first, last)]
+    imgs = render_all(scene, poses + [scene.stereo_pose(R, t, fx.BASELINE) for R, t in poses])
+    return list(zip(imgs[:len(poses)], imgs[len(poses):]))
+
+
+def _si_track(rec: dict, frames: list, first: int):
+    """``frames`` (from frame ``first`` on) through ``rec``'s system
+    (``track_stereo_inertial`` with each frame's IMU samples), the per-frame
+    states and IMU flags appended to ``rec``."""
+    import test_e2e_stereo_inertial as fx
+    system, (imu_ts, gyro, acc) = rec["system"], rec["imu_stream"]
+    per = fx.IMU_HZ // int(fx.FPS)
+    for i, (a, b) in enumerate(frames, first):
+        s0, s1 = (i - 1) * per, i * per
+        if i == 0:
+            s0 = s1 = 0
+        system.track_stereo_inertial(a, b, ts=i / fx.FPS, imu_ts=imu_ts[s0:s1],
+                                     imu_gyro=gyro[s0:s1], imu_acc=acc[s0:s1])
+        rec["states"].append(system.tracker.state.name)
+        rec["imu"].append(bool(system.tracker.imu_initialized))
+
+
+def _si_ate(system, n_frames: int):
+    """Metric ATE (no scale alignment) of the system's trajectory over the
+    fixture's first ``n_frames`` frames, and the frames it associates."""
+    import test_e2e_stereo_inertial as fx
+    from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+    gt = np.array([-R.T @ t for R, t in (fx.pose_at(i) for i in range(n_frames))])
+    ts, _, t_wc, lost = system.export_trajectory()
+    return evaluate_trajectory(np.arange(n_frames) / fx.FPS, gt, ts[~lost], t_wc[~lost],
+                               with_scale=False)
+
+
 def stereo_inertial_runs() -> dict:
     """tests/test_e2e_stereo_inertial.py's fixture (RoomScene(seed=2), the
     0.6-radius forward orbit, stereo baseline 0.11 with bf = 0.11·fx, a
     200 Hz IMU stream with gravity along the world's +y, 512 features,
     dense_tracking_params(), loop closing off, sync mapping) through both
-    packages: its 36 frames with the tracker's pipeline off, then
-    ``SI_PIPE_FRAMES`` more with the pipeline on (TrackingParams.pipeline is
-    read per frame), so that the IMU-initialized frames ride the fused
-    visual-inertial step. Returns {"jax": record, "torch": record}; a
-    record holds the system, the per-frame states and IMU flags, the
-    IMU-init frame, the metric ATE over the first 36 frames and over all,
-    and the tracker's path counts after each part."""
+    packages: its ``SI_SYNC_FRAMES`` frames with the tracker's pipeline off.
+    Returns {"jax": record, "torch": record}; a record holds the system,
+    the per-frame states and IMU flags, the IMU-init frame, the metric ATE
+    over these frames, the tracker's path counts and the stats
+    (``stereo_inertial_pipelined`` continues the same systems)."""
     import test_e2e_stereo_inertial as fx
     from conftest import dense_tracking_params
     from orbslam3_tpu.models.system import SlamSystem as JaxSlam
     from orbslam3_tpu.utils.datasets import RoomScene
-    from orbslam3_tpu.utils.evaluation import evaluate_trajectory
     from orbslam3_tpu_torch.models.system import SlamSystem
     from orbslam3_tpu_torch.models.tracking import TrackingParams
     from orbslam3_tpu_torch.utils.convert import config_from
     from orbslam3_tpu.ops import lie
-    n_total = SI_SYNC_FRAMES + SI_PIPE_FRAMES
     scene = RoomScene(seed=2, depth=6.0, half_w=4.0, half_h=2.5)
     with jitted(lie, "so3_log"):          # make_imu's one eager call per sample
-        imu_ts, gyro, acc = fx.make_imu(n_total)
-    per = fx.IMU_HZ // int(fx.FPS)
-    poses = [fx.pose_at(i) for i in range(n_total)]
-    imgs = render_all(scene, poses + [scene.stereo_pose(R, t, fx.BASELINE) for R, t in poses])
-    frames = list(zip(imgs[:n_total], imgs[n_total:]))
-    gt = np.array([-R.T @ t for R, t in poses])
+        stream = fx.make_imu(SI_SYNC_FRAMES + SI_PIPE_FRAMES)
     kw = dict(n_features=512, seed=0, bf=fx.BASELINE * scene.fx, th_depth=fx.BASELINE * 40,
               enable_loop_closing=False)
+    frames = _si_frames(scene, 0, SI_SYNC_FRAMES)
     jparams = dense_tracking_params()
     out = {}
     for name, system in (
@@ -651,25 +711,32 @@ def stereo_inertial_runs() -> dict:
             ("torch", SlamSystem(scene.K, None, (scene.w, scene.h), device="cpu",
                                  tracking_params=config_from(jparams, TrackingParams), **kw))):
         system.enable_imu(freq=fx.IMU_HZ)
-        rec = dict(system=system, states=[], imu=[])
-        for i, (a, b) in enumerate(frames):
-            if i == SI_SYNC_FRAMES:
-                ts, _, t_wc, lost = system.export_trajectory()
-                rec["ate_sync"], rec["n_sync"] = evaluate_trajectory(
-                    np.arange(i) / fx.FPS, gt[:i], ts[~lost], t_wc[~lost], with_scale=False)
-                rec["paths_sync"] = dict(system.tracker.path_counts)
-                system.tracker.p.pipeline = True
-            s0, s1 = (i - 1) * per, i * per
-            if i == 0:
-                s0 = s1 = 0
-            system.track_stereo_inertial(a, b, ts=i / fx.FPS, imu_ts=imu_ts[s0:s1],
-                                         imu_gyro=gyro[s0:s1], imu_acc=acc[s0:s1])
-            rec["states"].append(system.tracker.state.name)
-            rec["imu"].append(bool(system.tracker.imu_initialized))
-        ts, _, t_wc, lost = system.export_trajectory()
-        rec["ate"], rec["n_assoc"] = evaluate_trajectory(
-            np.arange(n_total) / fx.FPS, gt, ts[~lost], t_wc[~lost], with_scale=False)
+        rec = dict(system=system, scene=scene, imu_stream=stream, states=[], imu=[])
+        _si_track(rec, frames, 0)
+        rec["ate_sync"], rec["n_sync"] = _si_ate(system, SI_SYNC_FRAMES)
         rec["init_frame"] = rec["imu"].index(True) if any(rec["imu"]) else None
+        rec["paths_sync"] = dict(system.tracker.path_counts)
+        rec["stats"] = system.stats()
+        out[name] = rec
+    return out
+
+
+def stereo_inertial_pipelined(runs: dict) -> dict:
+    """``SI_PIPE_FRAMES`` more frames of the fixture through the systems of
+    ``stereo_inertial_runs`` with the tracker's pipeline on
+    (TrackingParams.pipeline is read per frame), so that the IMU-initialized
+    frames ride the fused visual-inertial step. Returns {"jax": record,
+    "torch": record}: the states of these frames, the metric ATE over all
+    frames, the path counts and the stats at the end."""
+    n_total = SI_SYNC_FRAMES + SI_PIPE_FRAMES
+    frames = _si_frames(runs["torch"]["scene"], SI_SYNC_FRAMES, n_total)
+    out = {}
+    for name, run in runs.items():
+        system = run["system"]
+        system.tracker.p.pipeline = True
+        rec = dict(run, states=[], imu=[])
+        _si_track(rec, frames, SI_SYNC_FRAMES)
+        rec["ate"], rec["n_assoc"] = _si_ate(system, n_total)
         rec["paths"] = dict(system.tracker.path_counts)
         rec["stats"] = system.stats()
         out[name] = rec
@@ -932,7 +999,8 @@ def orbit_imu_stream(radius: float, forward: float, n_frames: int):
 
 def inertial_front_end_runs(kind: str) -> dict:
     """The inertial RGB-D (``kind="rgbd"``: tests/test_e2e_stereo.py's RGB-D
-    orbit, bf = 0.11 fx) or two-camera fisheye (``"rig"``:
+    orbit, bf = 0.11 fx), stereo (``"stereo"``: that file's stereo orbit,
+    through ``track_stereo_inertial``) or two-camera fisheye (``"rig"``:
     tests/test_e2e_fisheye.py's KB8 rig at 512x512) front end with
     ``enable_imu`` and an IMU stream of the orbit (``orbit_imu_stream``), 512
     features, dense_tracking_params(), sync mapping, loop closing off, both
@@ -951,8 +1019,8 @@ def inertial_front_end_runs(kind: str) -> dict:
     from orbslam3_tpu_torch.models.tracking import TrackingParams
     from orbslam3_tpu_torch.utils.convert import config_from
     n = IFE_PRE + IFE_VI
-    if kind == "rgbd":
-        scene, _, views = depth_rig_inputs("rgbd")
+    if kind in ("rgbd", "stereo"):
+        scene, _, views = depth_rig_inputs(kind)
         K, wh, radius = scene.K, (scene.w, scene.h), 0.6
         kw = dict(bf=DEPTH_RIG_BASELINE * scene.fx, th_depth=DEPTH_RIG_BASELINE * 40)
     else:
@@ -986,8 +1054,12 @@ def inertial_front_end_runs(kind: str) -> dict:
 
     def step(s, i):
         s0, s1 = max(i - 1, 0) * 10, i * 10
-        s.tracker.grab_imu(imu_ts[s0:s1], gyro[s0:s1], acc[s0:s1])
         a, b = views[i]
+        if kind == "stereo":
+            s.track_stereo_inertial(a, b, ts=i / 20.0, imu_ts=imu_ts[s0:s1],
+                                    imu_gyro=gyro[s0:s1], imu_acc=acc[s0:s1])
+            return
+        s.tracker.grab_imu(imu_ts[s0:s1], gyro[s0:s1], acc[s0:s1])
         if kind == "rgbd":
             s.track_rgbd(a, b, ts=i / 20.0)
         else:
